@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of fhe_tpu.
+
+Mirrors the layout of `fhe_tpu` module by module (`math/ntt.py` ports
+`fhe_tpu/math/ntt.py`, and so on).  Plain tensor code is PyTorch; the
+TPU's Pallas kernels on the ported path are hand-written CUDA kernels for
+Hopper (`csrc/`, bound through `kernels/`).  Nothing here imports jax or
+fhe_tpu: `fhe_tpu` is the reference the tests hold this package against.
+
+Residues are stored as `torch.int32` (every modulus on the path is below
+2^31); the plain PyTorch versions compute in int64 and the kernels
+reinterpret the words as uint32.
+"""
+
+from . import convert, math, tfhe
+from .tfhe import BinFheContext, Gate, Method, make_params
+
+__all__ = ["BinFheContext", "Gate", "Method", "make_params", "convert",
+           "math", "tfhe"]

@@ -1,0 +1,46 @@
+"""Carry fhe_tpu state into the port.
+
+The functions take the arrays of fhe_tpu's objects as numpy arrays (for
+example `np.asarray(key.bsk)`), so this package never imports jax.
+Residues are uint32 below 2^31 in fhe_tpu and int32 here; the secret key
+is small signed integers in both.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .tfhe.lwe import LweCiphertext, LweSecretKey, LweSwitchingKey
+from .tfhe.rgsw import BootstrapKey
+
+
+def _residues(x, name: str, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.kind not in "iu":
+        raise TypeError(f"{name} must hold integers, got {x.dtype}")
+    if x.size and (x.min() < 0 or x.max() >= 2**31):
+        raise ValueError(f"{name} holds values outside [0, 2^31)")
+    return torch.from_numpy(np.ascontiguousarray(x).astype(np.int32)).to(device)
+
+
+def secret_key(s, device="cpu") -> LweSecretKey:
+    """fhe_tpu LweSecretKey.s (signed int32) -> LweSecretKey."""
+    s = np.asarray(s)
+    if s.dtype.kind != "i":
+        raise TypeError(f"secret key must be signed integers, got {s.dtype}")
+    return LweSecretKey(s=torch.from_numpy(s.astype(np.int32)).to(device))
+
+
+def ciphertext(a, b, modulus: int, pt_mod: int = 4, device="cpu") -> LweCiphertext:
+    """fhe_tpu LweCiphertext (a, b, modulus, pt_mod) -> LweCiphertext."""
+    return LweCiphertext(a=_residues(a, "a", device), b=_residues(b, "b", device),
+                         modulus=int(modulus), pt_mod=int(pt_mod))
+
+
+def bootstrap_key(bsk, ksk_a, ksk_b, device="cpu") -> BootstrapKey:
+    """fhe_tpu BootstrapKey (bsk, ksk.a, ksk.b) -> BootstrapKey.  The
+    fhe_tpu Shoup dual `bsk_shoup` is not carried: the port has none."""
+    return BootstrapKey(bsk=_residues(bsk, "bsk", device),
+                        ksk=LweSwitchingKey(a=_residues(ksk_a, "ksk.a", device),
+                                            b=_residues(ksk_b, "ksk.b", device)))

@@ -1,0 +1,129 @@
+"""BinFHE context facade (port of fhe_tpu/tfhe/context.py).
+
+A thin wrapper over the functions of lwe/rgsw/boot: parameters are static
+Python data, keys and ciphertexts are dataclasses of tensors on
+`self.device`, and every Eval* accepts batched ciphertexts.  Only the
+GINX/CGGI accumulator with a single-limb ring modulus is ported; the other
+paths raise NotImplementedError naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import boot, lwe, rgsw
+from .params import Gate, Method, TfheParams, make_params
+
+
+def _unported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to fhe_tpu_torch yet (ROADMAP.md queue 1, {item})")
+
+
+def _rng(rng: np.random.Generator | int) -> np.random.Generator:
+    return np.random.default_rng(rng) if isinstance(rng, int) else rng
+
+
+@dataclasses.dataclass
+class BinFheContext:
+    params: TfheParams
+    device: torch.device = torch.device("cpu")
+
+    # -- construction -------------------------------------------------------
+    @classmethod
+    def generate(cls, param_set: str = "STD128", method: Method | str | None = None,
+                 device: str | torch.device = "cpu") -> "BinFheContext":
+        """method=None auto-selects from the paramset name (*_LMKCDEY sets
+        get LMKCDEY, everything else GINX); an explicit incompatible method
+        raises ValueError."""
+        method = Method[method] if isinstance(method, str) else method
+        return cls(params=make_params(param_set, method), device=torch.device(device))
+
+    def _require_ported(self) -> None:
+        if self.params.method == Method.AP:
+            _unported("the AP/DM accumulator", "item 7, tfhe/acc.py")
+        if self.params.method == Method.LMKCDEY:
+            _unported("the LMKCDEY accumulator", "item 7, tfhe/acc.py")
+        if self.params.moduli_rns:
+            _unported(f"the RNS ring of {self.params.name}", "item 7, tfhe/rgsw_rns.py")
+
+    # -- key generation -----------------------------------------------------
+    def key_gen(self, rng: np.random.Generator | int = 0) -> lwe.LweSecretKey:
+        return lwe.keygen(self.params, _rng(rng), device=self.device)
+
+    def bt_key_gen(self, sk: lwe.LweSecretKey, rng: np.random.Generator | int = 0,
+                   sk_n: lwe.LweSecretKey | None = None) -> rgsw.BootstrapKey:
+        """BTKeyGen: draws sk_n (unless given), then the switching key, then
+        the bootstrap key, in fhe_tpu's order."""
+        self._require_ported()
+        rng = _rng(rng)
+        if sk_n is None:
+            sk_n = lwe.keygen(self.params, rng, dim=self.params.N, device=self.device)
+        ksk = lwe.key_switch_gen(self.params, sk, sk_n, rng)
+        return rgsw.BootstrapKey(bsk=rgsw.bsk_gen(self.params, sk, sk_n, rng), ksk=ksk)
+
+    def key_gen_pair(self, rng: np.random.Generator | int = 0):
+        _unported("public-key mode", "item 4, lwe.pub_key_gen / encrypt_pk")
+
+    def encrypt_pk(self, pk, m, rng: np.random.Generator | int = 0, p: int = 4, ksk=None):
+        _unported("public-key mode", "item 4, lwe.pub_key_gen / encrypt_pk")
+
+    # -- encryption ---------------------------------------------------------
+    def encrypt(self, sk: lwe.LweSecretKey, m, rng: np.random.Generator | int = 0,
+                p: int = 4, modulus: int | None = None) -> lwe.LweCiphertext:
+        return lwe.encrypt(self.params, sk, m, _rng(rng), p, modulus)
+
+    def decrypt(self, sk: lwe.LweSecretKey, ct: lwe.LweCiphertext,
+                p: int | None = None) -> torch.Tensor:
+        return lwe.decrypt(self.params, sk, ct, p)
+
+    # -- gates --------------------------------------------------------------
+    def eval_bin_gate(self, key: rgsw.BootstrapKey, gate: Gate | str,
+                      ct1: lwe.LweCiphertext, ct2: lwe.LweCiphertext,
+                      extended: bool = False) -> lwe.LweCiphertext:
+        gate = Gate[gate] if isinstance(gate, str) else gate
+        if gate == Gate.CMUX:
+            raise ValueError("CMUX takes 3 inputs")
+        self._require_ported()
+        return boot.eval_bin_gate(self.params, key, gate, ct1, ct2, extended)
+
+    def eval_bin_gate_multi(self, key: rgsw.BootstrapKey, gate: Gate | str, cts,
+                            extended: bool = False) -> lwe.LweCiphertext:
+        gate = Gate[gate] if isinstance(gate, str) else gate
+        self._require_ported()
+        return boot.eval_bin_gate_multi(self.params, key, gate, list(cts), extended)
+
+    def eval_not(self, ct: lwe.LweCiphertext) -> lwe.LweCiphertext:
+        return lwe.not_(ct)
+
+    def eval_constant(self, value, batch: int | None = None) -> lwe.LweCiphertext:
+        """Trivial (noiseless, a=0) encryption of a constant bit
+        (EvalConstant -> NoiselessEmbedding): b = (q/4)*m, a = 0."""
+        q, n = self.params.q, self.params.n
+        v = np.asarray(value, dtype=np.int64)
+        if batch is not None and v.ndim == 0:
+            v = np.full(batch, int(v))
+        b = torch.from_numpy((v % 4) * (q // 4)).to(self.device, torch.int32)
+        a = torch.zeros(v.shape + (n,), dtype=torch.int32, device=self.device)
+        return lwe.LweCiphertext(a=a, b=b, modulus=q, pt_mod=4)
+
+    def bootstrap(self, key: rgsw.BootstrapKey, ct: lwe.LweCiphertext,
+                  extended: bool = False) -> lwe.LweCiphertext:
+        self._require_ported()
+        return boot.bootstrap(self.params, key, ct, extended)
+
+    # -- functional bootstrapping -------------------------------------------
+    def eval_func(self, key, ct, lut):
+        _unported("functional bootstrapping", "item 7, tfhe/funcboot.py")
+
+    def eval_floor(self, key, ct, roundbits: int = 0):
+        _unported("functional bootstrapping", "item 7, tfhe/funcboot.py")
+
+    def eval_sign(self, key, ct, scheme_switch: bool = False):
+        _unported("functional bootstrapping", "item 7, tfhe/funcboot.py")
+
+    def eval_decomp(self, key, ct):
+        _unported("functional bootstrapping", "item 7, tfhe/funcboot.py")

@@ -1,0 +1,86 @@
+"""fhe_tpu_torch CUDA kernels against their plain PyTorch versions, on the
+card (byte-equal: every value is an integer residue).
+
+Imports neither jax nor fhe_tpu, so it runs where only the port is
+installed.  Every test needs a CUDA device and skips without one:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fhe_tpu_torch import BinFheContext
+from fhe_tpu_torch.kernels import launch_counts
+from fhe_tpu_torch.math import ntt
+from fhe_tpu_torch.tfhe import boot, make_params
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def gen():
+    return np.random.default_rng(4321)
+
+
+def _residues(gen, high, shape, dev):
+    return torch.from_numpy(gen.integers(0, high, size=shape)).to(dev, torch.int32)
+
+
+def _same(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows,N", [(64, 1024), (4024, 1024), (64, 512), (3, 4096)])
+def test_ntt_kernels_match_plain(rows, N, cuda, gen):
+    q = 134215681 if N <= 1024 else 268369921
+    plan = ntt.make_plan(N, q, cuda)
+    x = _residues(gen, q, (rows, N), cuda)
+    f = ntt.ntt_forward(plan, x)
+    _same(f, ntt.forward_butterfly(plan, x))
+    i = ntt.ntt_inverse(plan, f)
+    _same(i, ntt.inverse_butterfly(plan, f))
+    _same(i, x)
+
+
+def test_ntt_kernel_rejects_bad_input(cuda):
+    plan = ntt.make_plan(1024, 134215681, cuda)
+    with pytest.raises(TypeError):
+        ntt.ntt_forward(plan, torch.zeros(2, 1024, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        ntt.ntt_forward(ntt.make_plan(1024, 134215681),
+                        torch.zeros(2, 1024, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("name,steps", [("TOY", 64), ("STD128", 16)])
+def test_blind_rotate_kernel_matches_plain(name, steps, cuda, gen):
+    p = make_params(name)
+    acc = _residues(gen, p.Q, (8, 2, p.N), cuda)
+    bsk = _residues(gen, p.Q, (steps, 2, p.digits_g2, 2, p.N), cuda)
+    a = _residues(gen, p.q, (8, steps), cuda)
+    _same(boot.blind_rotate(p, bsk, acc, a), boot.blind_rotate_plain(p, bsk, acc, a))
+
+
+def test_toy_gate_on_card_matches_cpu(cuda):
+    """The whole TOY gate on the card equals the plain CPU pipeline."""
+    outs = []
+    for dev in ("cpu", cuda):
+        ctx = BinFheContext.generate("TOY", device=dev)
+        sk = ctx.key_gen(1)
+        key = ctx.bt_key_gen(sk, 2)
+        m1, m2 = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1])
+        before = launch_counts()["blind_rotate"]
+        out = ctx.eval_bin_gate(key, "XOR", ctx.encrypt(sk, m1, 3), ctx.encrypt(sk, m2, 4))
+        assert ctx.decrypt(sk, out).tolist() == [0, 1, 1, 0]
+        assert (launch_counts()["blind_rotate"] > before) == (dev != "cpu")
+        outs.append(out.to("cpu"))
+    _same(outs[1].a, outs[0].a)
+    _same(outs[1].b, outs[0].b)
