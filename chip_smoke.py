@@ -3,26 +3,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once -- the batched, bootstrapped STD128 GINX
-gate -- through its public entry points on the first CUDA device:
+Drives the port's main path -- the batched, bootstrapped STD128 GINX gate
+-- through its public entry points on the first CUDA device, once through
+each of the three accumulators (`ntt_impl` None, "mega", "fused"):
 
 1. device: card name and power limit, torch, nvcc, triton;
 2. build: compiles every kernel from fhe_tpu_torch/csrc/ (nvcc, sm_90a);
 3. kernels against their plain PyTorch versions on the card, byte-equal;
-4. main path: STD128 keygen, AND and XOR on 4096 independent random bit
-   pairs and one single-gate AND, decrypted against the truth tables, with
-   the kernels' launch counters reset just before and read just after;
-5. timings with CUDA events: gates/s at batch 4096, single-gate latency,
-   and each kernel against its plain version at the main path's shapes.
+4. main path, once per accumulator: STD128 keygen (once), AND and XOR on
+   4096 independent random bit pairs, one single-gate AND, CMUX at batch
+   4096 and the batch API's ASYNC AND, decrypted against the truth tables,
+   with the kernels' launch counters reset just before each accumulator's
+   run and read just after; the three accumulators' outputs must be
+   identical;
+5. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+   per accumulator, and each kernel against its plain version at the main
+   path's shapes, beside its bound (the least time the card could take).
 
 It exits non-zero, and prints no result, when there is no CUDA device or
-any phase fails.  Its last two lines are a JSON object of the kernels and
+any phase fails.  Its last three lines are a JSON object of the kernels,
 the card's `nvidia-smi` name and power limit, then
 {"ok": true, "device": {...}}.  Keys and inputs are made from SEED.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import statistics
@@ -35,11 +41,20 @@ import torch
 
 SEED = 20261016
 BATCH = 4096
+IMPLS = (None, "mega", "fused")
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "ntt_forward": ("fhe_tpu_torch/csrc/ntt.cu", "fhe_tpu/math/ntt_pallas.py:64"),
     "ntt_inverse": ("fhe_tpu_torch/csrc/ntt.cu", "fhe_tpu/math/ntt_pallas.py:79"),
     "blind_rotate": ("fhe_tpu_torch/csrc/blind_rotate.cu", "fhe_tpu/tfhe/boot_mxu.py:230"),
+    "blind_rotate_mega": ("fhe_tpu_torch/csrc/blind_rotate_br.cu",
+                          "fhe_tpu/tfhe/boot_pallas.py:235"),
+    "rotate_step_br": ("fhe_tpu_torch/csrc/blind_rotate_br.cu",
+                       "fhe_tpu/tfhe/boot_pallas.py:153"),
 }
+# the accumulator kernel each ntt_impl runs, and its launches per gate
+ACC_KERNEL = {None: "blind_rotate", "mega": "blind_rotate_mega", "fused": "rotate_step_br"}
+HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
+IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
 
 def fail(msg: str):
@@ -51,6 +66,13 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def device_report(card: str) -> None:
@@ -97,7 +119,7 @@ def _residues(rng, high, shape, dev):
 
 def check_kernels(dev, errors: Errors) -> None:
     from fhe_tpu_torch.math import ntt
-    from fhe_tpu_torch.tfhe import boot, make_params
+    from fhe_tpu_torch.tfhe import boot, boot_pallas, make_params
     rng = np.random.default_rng(SEED + 1)
     q = 134215681
     for rows, N in [(64, 1024), (4024, 1024), (64, 512)]:
@@ -105,6 +127,9 @@ def check_kernels(dev, errors: Errors) -> None:
         x = _residues(rng, q, (rows, N), dev)
         f = ntt.ntt_forward(plan, x)
         errors.compare("ntt_forward", f, ntt.forward_butterfly(plan, x), f"ntt_forward [{rows}, {N}]")
+        errors.compare("ntt_forward", ntt.ntt_forward(plan, x, out_br=True),
+                       ntt.forward_butterfly(plan, x, out_br=True),
+                       f"ntt_forward out_br [{rows}, {N}]")
         i = ntt.ntt_inverse(plan, f)
         errors.compare("ntt_inverse", i, ntt.inverse_butterfly(plan, f), f"ntt_inverse [{rows}, {N}]")
         errors.compare("ntt_inverse", i, x, f"ntt_inverse(ntt_forward) [{rows}, {N}] round trip")
@@ -113,54 +138,100 @@ def check_kernels(dev, errors: Errors) -> None:
         acc = _residues(rng, p.Q, (8, 2, p.N), dev)
         bsk = _residues(rng, p.Q, (steps, 2, p.digits_g2, 2, p.N), dev)
         a = _residues(rng, p.q, (8, steps), dev)
+        what = f"{name} B=8 steps={steps} random key"
         errors.compare("blind_rotate", boot.blind_rotate(p, bsk, acc, a),
-                       boot.blind_rotate_plain(p, bsk, acc, a),
-                       f"blind_rotate {name} B=8 steps={steps} random key")
+                       boot.blind_rotate_plain(p, bsk, acc, a), f"blind_rotate {what}")
+        want = boot_pallas.blind_rotate_mega_plain(p, bsk, acc, a)
+        errors.compare("blind_rotate_mega", boot_pallas.blind_rotate_mega(p, bsk, acc, a), want,
+                       f"blind_rotate_mega {what}")
+        errors.compare("rotate_step_br", boot_pallas.blind_rotate_fused(p, bsk, acc, a), want,
+                       f"rotate_step_br x {steps} launches (blind_rotate_fused) {what}")
+        errors.compare("rotate_step_br", boot_pallas.rotate_step_br(p, bsk[0], acc, a[:, 0]),
+                       boot_pallas.rotate_step_br_plain(p, bsk[0], acc, a[:, 0]),
+                       f"rotate_step_br one step {name} B=8")
     torch.cuda.synchronize()
 
 
-def main_path(dev):
-    """STD128 keygen + AND/XOR at batch 4096 + one single gate, decrypted."""
-    from fhe_tpu_torch import BinFheContext, kernels
+def run_path(ctx, sk, key, bits, cts, impl):
+    """One accumulator's run of the main path; returns its output
+    ciphertexts and the launches of each kernel in it."""
+    from fhe_tpu_torch import kernels
+    from fhe_tpu_torch.parallel import BatchFlags, eval_bin_gate_batch
+    m1, m2, sel = bits
+    ct1, ct2, cs, one1, one2 = cts
+    ctx = dataclasses.replace(ctx, ntt_impl=impl)
+    tag = f"[main] ntt_impl={impl}"
+
+    def decrypt_check(what, out, want, shape=(BATCH,)):
+        if out.a.shape != shape + (ctx.params.n,) or out.modulus != ctx.params.q:
+            fail(f"{what}: output ciphertext shape {tuple(out.a.shape)} mod {out.modulus}")
+        got = ctx.decrypt(sk, out).cpu().numpy()
+        wrong = int((got != want).sum())
+        print(f"{tag} {what}: {wrong} wrong of {got.size} (ones in output: {int(got.sum())})")
+        if wrong:
+            fail(f"{what} with ntt_impl={impl} does not decrypt to its truth table")
+
+    torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = {"AND": ctx.eval_bin_gate(key, "AND", ct1, ct2),
+            "XOR": ctx.eval_bin_gate(key, "XOR", ct1, ct2),
+            "single AND": ctx.eval_bin_gate(key, "AND", one1, one2),
+            "CMUX": ctx.eval_cmux(key, ct1, ct2, cs)}
+    fut, res = eval_bin_gate_batch(ctx, key, "AND", ct1, ct2, BatchFlags.ASYNC)
+    if not res.success or res.processed != BATCH:
+        fail(f"eval_bin_gate_batch with ntt_impl={impl}: {res}")
+    outs["batch API AND"] = fut.result()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    first_s = time.perf_counter() - t0
+    gates = 7                       # AND, XOR, single AND, 3 NANDs of the CMUX, batch API
+    print(f"{tag} {gates} gates (first calls) in {first_s:.3f} s; launches: {launches}")
+    decrypt_check(f"AND batch {BATCH}", outs["AND"], m1 & m2)
+    decrypt_check(f"XOR batch {BATCH}", outs["XOR"], m1 ^ m2)
+    decrypt_check("single AND", outs["single AND"], (m1 & m2)[:1], shape=(1,))
+    decrypt_check(f"CMUX batch {BATCH}", outs["CMUX"], np.where(sel == 1, m2, m1))
+    decrypt_check(f"eval_bin_gate_batch ASYNC AND batch {BATCH}", outs["batch API AND"], m1 & m2)
+    per_gate = ctx.params.n if impl == "fused" else 1
+    for name in KERNELS:
+        want = gates * per_gate if name == ACC_KERNEL[impl] else (
+            0 if name in ACC_KERNEL.values() else None)
+        if want is None and launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the main path with ntt_impl={impl}")
+        if want is not None and launches[name] != want:
+            fail(f"kernel {name}: {launches[name]} launches with ntt_impl={impl}, "
+                 f"expected {want}")
+    return outs, launches
+
+
+def main_path(dev):
+    """STD128 keygen, then each accumulator's run; the outputs must agree."""
+    from fhe_tpu_torch import BinFheContext
     t0 = time.perf_counter()
     ctx = BinFheContext.generate("STD128", device=dev)
     rng = np.random.default_rng(SEED)
     sk = ctx.key_gen(rng)
     key = ctx.bt_key_gen(sk, rng)
     torch.cuda.synchronize()
-    keygen_s = time.perf_counter() - t0
     print(f"[main] STD128 keygen (sk, ksk {tuple(key.ksk.a.shape)}, bsk "
-          f"{tuple(key.bsk.shape)}) on {dev}: {keygen_s:.3f} s")
-    m1 = rng.integers(0, 2, size=BATCH)
-    m2 = rng.integers(0, 2, size=BATCH)
-    ct1, ct2 = ctx.encrypt(sk, m1, rng), ctx.encrypt(sk, m2, rng)
-    truth = {"AND": m1 & m2, "XOR": m1 ^ m2}
-    for gate, want in truth.items():
-        t0 = time.perf_counter()
-        out = ctx.eval_bin_gate(key, gate, ct1, ct2)
-        got = ctx.decrypt(sk, out).cpu().numpy()
-        first_s = time.perf_counter() - t0
-        if out.a.shape != (BATCH, ctx.params.n) or out.modulus != ctx.params.q:
-            fail(f"{gate}: output ciphertext shape {tuple(out.a.shape)} mod {out.modulus}")
-        wrong = int((got != want).sum())
-        print(f"[main] {gate} batch {BATCH}: {wrong} wrong of {BATCH} "
-              f"(ones in output: {int(got.sum())}), first call {first_s:.3f} s")
-        if wrong:
-            fail(f"{gate} does not decrypt to its truth table")
-    one1, one2 = ctx.encrypt(sk, m1[:1], rng), ctx.encrypt(sk, m2[:1], rng)
-    got = ctx.decrypt(sk, ctx.eval_bin_gate(key, "AND", one1, one2)).cpu().numpy()
-    print(f"[main] single AND({m1[0]}, {m2[0]}) = {got.tolist()}")
-    if got.tolist() != [int(m1[0] & m2[0])]:
-        fail("single-gate AND is wrong")
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    print(f"[main] kernel launches in the main path: {launches}")
-    for name in KERNELS:
-        if launches[name] <= 0:
-            fail(f"kernel {name} was not launched by the main path")
+          f"{tuple(key.bsk.shape)}) on {dev}: {time.perf_counter() - t0:.3f} s")
+    bits = tuple(rng.integers(0, 2, size=BATCH) for _ in range(3))
+    cts = tuple(ctx.encrypt(sk, m, rng) for m in bits)
+    cts += (ctx.encrypt(sk, bits[0][:1], rng), ctx.encrypt(sk, bits[1][:1], rng))
+    launches, first = {}, None
+    for impl in IMPLS:
+        outs, launches[impl] = run_path(ctx, sk, key, bits, cts, impl)
+        if first is None:
+            first = outs
+            continue
+        for what, out in outs.items():
+            if not (torch.equal(out.a, first[what].a) and torch.equal(out.b, first[what].b)):
+                fail(f"{what}: ntt_impl={impl} output differs from ntt_impl=None")
+        print(f"[main] ntt_impl={impl}: all {len(outs)} outputs identical to ntt_impl=None")
     print(f"[main] peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return ctx, sk, key, (ct1, ct2, one1, one2), launches
+    path_launches = {name: launches[None][name] for name in ("ntt_forward", "ntt_inverse")}
+    path_launches.update({name: launches[impl][name] for impl, name in ACC_KERNEL.items()})
+    return ctx, key, cts, path_launches
 
 
 def time_ms(fn, reps: int) -> float:
@@ -176,16 +247,57 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def timed_once(fn):
+    """(CUDA-event ms, result) of one call of fn()."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def step_multiplies(p) -> int:
+    """32-bit integer multiplies of one CGGI step of one ciphertext: a Shoup
+    product is 3, a Montgomery product 4; 2 inverse NTTs with the N^-1
+    scale, dG2 forward NTTs, 2 x 2 x dG2 external-product rows, 2 x 2
+    monomial products, 2 monomial indices per slot."""
+    butterflies = p.N // 2 * (p.N.bit_length() - 1)
+    ntts = 2 * (3 * butterflies + 3 * p.N) + p.digits_g2 * 3 * butterflies
+    return ntts + 4 * p.digits_g2 * p.N * 4 + 4 * p.N * 4 + 2 * p.N
+
+
+def bound(nbytes: int, muls: int, int_peak: float):
+    """(bound ms, what bounds it): the larger of bytes over the memory rate
+    and 32-bit multiplies over the integer multiply peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, muls / int_peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def timings(dev, ctx, key, cts, errors: Errors, card: str) -> dict:
     from fhe_tpu_torch.math import ntt
-    from fhe_tpu_torch.tfhe import boot
-    ct1, ct2, one1, one2 = cts
+    from fhe_tpu_torch.tfhe import boot, boot_pallas
+    ct1, ct2, _, one1, one2 = cts
     p = ctx.params
-    batch_ms = time_ms(lambda: ctx.eval_bin_gate(key, "AND", ct1, ct2), reps=3)
-    single_ms = time_ms(lambda: ctx.eval_bin_gate(key, "AND", one1, one2), reps=5)
-    print(f"[time] STD128 AND batch {BATCH}: {batch_ms:.3f} ms = "
-          f"{BATCH / batch_ms * 1e3:.1f} gates/s  ({card})")
-    print(f"[time] STD128 single-gate AND latency: {single_ms:.3f} ms  ({card})")
+    for impl in IMPLS:
+        c = dataclasses.replace(ctx, ntt_impl=impl)
+        batch_ms = time_ms(lambda: c.eval_bin_gate(key, "AND", ct1, ct2), reps=3)
+        single_ms = time_ms(lambda: c.eval_bin_gate(key, "AND", one1, one2), reps=5)
+        print(f"[time] ntt_impl={impl} STD128 AND batch {BATCH}: {batch_ms:.3f} ms = "
+              f"{BATCH / batch_ms * 1e3:.1f} gates/s  ({card})")
+        print(f"[time] ntt_impl={impl} STD128 single-gate AND latency: {single_ms:.3f} ms  "
+              f"({card})")
+
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    int_peak = sms * IMUL_PER_CLOCK_PER_SM * clock
+    print(f"[bound] memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s (data sheet); 32-bit integer "
+          f"multiply peak {int_peak / 1e12:.3f} T/s = {sms} SMs x {IMUL_PER_CLOCK_PER_SM}/clock "
+          f"x {clock / 1e9:.3f} GHz max SM clock (derived, not a data-sheet rate)")
 
     rng = np.random.default_rng(SEED + 2)
     plan = ntt.make_plan(p.N, p.Q, dev)
@@ -193,22 +305,67 @@ def timings(dev, ctx, key, cts, errors: Errors, card: str) -> dict:
     x_i = _residues(rng, p.Q, (2 * BATCH, p.N), dev)        # extract_lwe
     acc = _residues(rng, p.Q, (BATCH, 2, p.N), dev)
     a = _residues(rng, p.q, (BATCH, p.n), dev)
+    bsk_br = boot_pallas.bsk_to_br(p, key.bsk)
+    pows = boot._psi_powers_mont_words(p.N, p.Q, dev)
+    twiddles = _nbytes(plan.fwd_w, plan.fwd_ws)
+    butterflies = p.N // 2 * (p.N.bit_length() - 1)
+    errors.compare("ntt_forward", ntt.ntt_forward(plan, x_f, out_br=True),
+                   ntt.forward_butterfly(plan, x_f, out_br=True),
+                   f"ntt_forward out_br [{BATCH}, {p.N}] (main-path shape)")
+    rot_bytes = _nbytes(acc, acc, key.bsk, a, pows) + 2 * twiddles
+    step_bytes = _nbytes(acc, acc, key.bsk[0], a[:, 0], pows) + 2 * twiddles
+    step_muls = step_multiplies(p) * BATCH
+    fused = lambda: boot_pallas.blind_rotate_fused(p, bsk_br, acc, a)
+    # name -> (shape, kernel, plain, timed run of the kernel and its launches,
+    #          reps of that run, plain reps, bytes, multiplies)
     cases = {
         "ntt_forward": (f"[{BATCH}, {p.N}]", lambda: ntt.ntt_forward(plan, x_f),
-                        lambda: ntt.forward_butterfly(plan, x_f), 5),
+                        lambda: ntt.forward_butterfly(plan, x_f), None, 1, 5, 5,
+                        _nbytes(x_f, x_f) + twiddles, BATCH * 3 * butterflies),
         "ntt_inverse": (f"[{2 * BATCH}, {p.N}]", lambda: ntt.ntt_inverse(plan, x_i),
-                        lambda: ntt.inverse_butterfly(plan, x_i), 5),
+                        lambda: ntt.inverse_butterfly(plan, x_i), None, 1, 5, 5,
+                        _nbytes(x_i, x_i) + twiddles, 2 * BATCH * 3 * (butterflies + p.N)),
         "blind_rotate": (f"[{BATCH}, 2, {p.N}] x {p.n} steps, STD128 key",
                          lambda: boot.blind_rotate(p, key.bsk, acc, a),
-                         lambda: boot.blind_rotate_plain(p, key.bsk, acc, a), 1),
+                         lambda: boot.blind_rotate_plain(p, key.bsk, acc, a), None, 1, 3, 1,
+                         rot_bytes, step_muls * p.n),
+        "blind_rotate_mega": (f"[{BATCH}, 2, {p.N}] x {p.n} steps, STD128 key, bit-reversed",
+                              lambda: boot_pallas.blind_rotate_mega(p, bsk_br, acc, a),
+                              lambda: boot_pallas.blind_rotate_mega_plain(p, bsk_br, acc, a),
+                              None, 1, 3, 1, rot_bytes, step_muls * p.n),
+        # one step; the kernel's time per launch is taken over the n launches
+        # of blind_rotate_fused, which also runs nothing else on the card
+        "rotate_step_br": (f"[{BATCH}, 2, {p.N}] x 1 step, STD128 key, bit-reversed",
+                           lambda: boot_pallas.rotate_step_br(p, bsk_br[0], acc, a[:, 0]),
+                           lambda: boot_pallas.rotate_step_br_plain(p, bsk_br[0], acc, a[:, 0]),
+                           fused, p.n, 3, 3, step_bytes, step_muls),
     }
-    result = {}
-    for name, (shape, kern, plain, reps) in cases.items():
-        errors.compare(name, kern(), plain(), f"{name} {shape} (main-path shape)")
-        k_ms = time_ms(kern, reps=max(reps, 3))
-        p_ms = time_ms(plain, reps=reps)
-        print(f"[time] {name} {shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms  ({card})")
-        result[name] = (k_ms, p_ms)
+    result, mega_plain = {}, None
+    for name, (shape, kern, plain, run, launches, k_reps, p_reps, nbytes, muls) in cases.items():
+        got = kern()
+        if p_reps == 1:
+            p_ms, want = timed_once(plain)
+        else:
+            want = plain()
+            p_ms = time_ms(plain, reps=p_reps)
+        errors.compare(name, got, want, f"{name} {shape} (main-path shape)")
+        if name == "blind_rotate_mega":
+            mega_plain = want
+        if run is None:
+            k_ms = time_ms(kern, reps=k_reps)
+        else:
+            errors.compare(name, run(), mega_plain,
+                           f"{name} x {launches} launches (blind_rotate_fused) [{BATCH}, 2, {p.N}]")
+            run_ms = time_ms(run, reps=k_reps)
+            k_ms = run_ms / launches
+            print(f"[time] {name} x {launches} launches (blind_rotate_fused) [{BATCH}, 2, {p.N}]: "
+                  f"{run_ms:.3f} ms; one call of the single-step wrapper {time_ms(kern, 5):.3f} ms "
+                  f"(with its index computation and the host's issue time)  ({card})")
+        b_ms, b_by = bound(nbytes, muls, int_peak)
+        print(f"[time] {name} {shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms by {b_by} ({nbytes} bytes, {muls} multiplies), kernel at "
+              f"{b_ms / k_ms:.3f} of its bound  ({card})")
+        result[name] = (k_ms, p_ms, b_ms, b_by)
     return result
 
 
@@ -222,11 +379,12 @@ def main() -> int:
     build()
     errors = Errors()
     check_kernels(dev, errors)
-    ctx, sk, key, cts, launches = main_path(dev)
+    ctx, key, cts, launches = main_path(dev)
     times = timings(dev, ctx, key, cts, errors, card)
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errors.max[name],
-             "ms": times[name][0], "plain_ms": times[name][1]}
+             "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],
+             "bound_by": times[name][3], "library_ms": None}
             for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": rows}))
     print(card_line())

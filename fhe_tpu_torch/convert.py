@@ -3,7 +3,8 @@
 The functions take the arrays of fhe_tpu's objects as numpy arrays (for
 example `np.asarray(key.bsk)`), so this package never imports jax.
 Residues are uint32 below 2^31 in fhe_tpu and int32 here; the secret key
-is small signed integers in both.
+is small signed integers in both.  The tensors go to the first CUDA card
+unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ def _residues(x, name: str, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x).astype(np.int32)).to(device)
 
 
-def secret_key(s, device="cpu") -> LweSecretKey:
+def secret_key(s, device="cuda") -> LweSecretKey:
     """fhe_tpu LweSecretKey.s (signed int32) -> LweSecretKey."""
     s = np.asarray(s)
     if s.dtype.kind != "i":
@@ -32,13 +33,13 @@ def secret_key(s, device="cpu") -> LweSecretKey:
     return LweSecretKey(s=torch.from_numpy(s.astype(np.int32)).to(device))
 
 
-def ciphertext(a, b, modulus: int, pt_mod: int = 4, device="cpu") -> LweCiphertext:
+def ciphertext(a, b, modulus: int, pt_mod: int = 4, device="cuda") -> LweCiphertext:
     """fhe_tpu LweCiphertext (a, b, modulus, pt_mod) -> LweCiphertext."""
     return LweCiphertext(a=_residues(a, "a", device), b=_residues(b, "b", device),
                          modulus=int(modulus), pt_mod=int(pt_mod))
 
 
-def bootstrap_key(bsk, ksk_a, ksk_b, device="cpu") -> BootstrapKey:
+def bootstrap_key(bsk, ksk_a, ksk_b, device="cuda") -> BootstrapKey:
     """fhe_tpu BootstrapKey (bsk, ksk.a, ksk.b) -> BootstrapKey.  The
     fhe_tpu Shoup dual `bsk_shoup` is not carried: the port has none."""
     return BootstrapKey(bsk=_residues(bsk, "bsk", device),

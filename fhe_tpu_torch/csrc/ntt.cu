@@ -1,4 +1,5 @@
-// Batched negacyclic NTT / inverse NTT, natural order in and out.
+// Batched negacyclic NTT / inverse NTT, natural order in and out (the
+// forward NTT can also leave its native bit-reversed order: `out_br`).
 //
 // Replaces: fhe_tpu/math/ntt_pallas.py `_fwd_kernel` (forward_pallas) and
 // `_inv_kernel` (inverse_pallas), the TPU kernels that keep a [tile, N]
@@ -12,7 +13,9 @@
 // What this first version does about that: nothing yet.  One block per
 // row holds the [N] row in shared memory for all stages (the role VMEM
 // played), with the bit-reversal folded into the store (forward) or the
-// load (inverse) and N^-1 (Shoup) folded into the inverse's store.
+// load (inverse) and N^-1 (Shoup) folded into the inverse's store; with
+// `out_br` the forward stores the stages' bit-reversed order as it is
+// (ntt_pallas.forward_pallas(out_br=True), the input of kernels 4 and 5).
 // wgmma and TMA do not apply to 32-bit modular arithmetic; register-
 // resident stages and several rows per block are for a later change.
 #include <cuda_runtime.h>
@@ -24,13 +27,14 @@ namespace {
 __global__ void ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                                    const uint32_t* __restrict__ w,
                                    const uint32_t* __restrict__ ws, int N, int logN,
-                                   uint32_t q) {
+                                   uint32_t q, int out_br) {
   extern __shared__ uint32_t s[];
   const size_t base = static_cast<size_t>(blockIdx.x) * N;
   for (int k = threadIdx.x; k < N; k += blockDim.x) s[k] = x[base + k];
   __syncthreads();
   fhe::ntt_fwd_stages(s, 1, N, logN, w, ws, q);
-  for (int k = threadIdx.x; k < N; k += blockDim.x) y[base + k] = s[fhe::brev(k, logN)];
+  for (int k = threadIdx.x; k < N; k += blockDim.x)
+    y[base + k] = s[out_br ? k : fhe::brev(k, logN)];
 }
 
 __global__ void ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
@@ -51,13 +55,13 @@ __global__ void ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __r
 extern "C" {
 
 int fhe_ntt_forward(const void* x, void* y, const void* w, const void* ws, int rows, int N,
-                    uint32_t q, void* stream) {
+                    uint32_t q, int out_br, void* stream) {
   if (rows > 0) {
     ntt_forward_kernel<<<rows, fhe::ntt_threads(N), N * sizeof(uint32_t),
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
         static_cast<const uint32_t*>(w), static_cast<const uint32_t*>(ws), N,
-        fhe::log2_int(N), q);
+        fhe::log2_int(N), q, out_br);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Device functions shared by the NTT kernels (ntt.cu) and the blind
-// rotation kernel (blind_rotate.cu).
+// rotation step (cggi_step.cuh).
 //
 // Residues are uint32 words in [0, q) with q < 2^31 an NTT prime.  The
 // products are the reference's: Shoup (w, w' = floor(w 2^32 / q)) for the

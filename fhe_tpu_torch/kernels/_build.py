@@ -38,11 +38,13 @@ _U = ctypes.c_uint32
 
 # entry point -> argtypes (pointers and the stream as c_void_p)
 _SIGNATURES = {
-    "fhe_ntt_forward": (_P, _P, _P, _P, _I, _I, _U, _P),
+    "fhe_ntt_forward": (_P, _P, _P, _P, _I, _I, _U, _I, _P),
     "fhe_ntt_inverse": (_P, _P, _P, _P, _I, _I, _U, _U, _U, _P),
     "fhe_blind_rotate": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I,
                          _U, _U, _U, _U, _U, _U, _U, _P),
+    "fhe_blind_rotate_mega": (_P,) * 10 + (_I,) * 7 + (_U,) * 5 + (_P,),
+    "fhe_rotate_step_br": (_P,) * 10 + (_I,) * 8 + (_U,) * 5 + (_P,),
 }
 
 

@@ -32,14 +32,15 @@ def _check(plan, x: torch.Tensor) -> None:
         raise ValueError(f"plan tables on {plan.fwd_w.device}, input on {x.device}")
 
 
-def forward(plan, x: torch.Tensor) -> torch.Tensor:
-    """[rows, N] int32 COEFFICIENT -> natural-order EVALUATION (kernel)."""
+def forward(plan, x: torch.Tensor, out_br: bool = False) -> torch.Tensor:
+    """[rows, N] int32 COEFFICIENT -> EVALUATION (kernel), in natural order
+    or, with out_br, in the stages' bit-reversed order."""
     _check(plan, x)
     y = torch.empty_like(x)
     lib = _build.library().cdll
     rc = lib.fhe_ntt_forward(x.data_ptr(), y.data_ptr(), plan.fwd_w.data_ptr(),
                              plan.fwd_ws.data_ptr(), x.shape[0], plan.N, plan.q,
-                             _build.stream_handle(x.device))
+                             int(out_br), _build.stream_handle(x.device))
     _build.check(rc, "fhe_ntt_forward")
     LAUNCHES["ntt_forward"] += 1
     return y

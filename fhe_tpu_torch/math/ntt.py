@@ -92,10 +92,11 @@ def _table(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device=device, dtype=torch.int64)
 
 
-def forward_butterfly(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
-    """[..., N] COEFFICIENT -> EVALUATION (natural order); plain version.
+def forward_butterfly(plan: NttPlan, x: torch.Tensor, out_br: bool = False) -> torch.Tensor:
+    """[..., N] COEFFICIENT -> EVALUATION; plain version.
 
-    Returns the input's integer dtype."""
+    Natural order, or with out_br the stages' bit-reversed order (the
+    final gather skipped).  Returns the input's integer dtype."""
     N, q = plan.N, plan.q
     lead = x.shape[:-1]
     w_all = _table(plan.fwd_w, x.device)
@@ -108,7 +109,8 @@ def forward_butterfly(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
         u = yv[:, :, 0, :]
         v = shoup_mul(yv[:, :, 1, :], w, q)
         y = torch.stack([add_mod(u, v, q), sub_mod(u, v, q)], dim=2).reshape(-1, N)
-    y = y[:, _table(plan.br, x.device)]        # bit-reversed -> natural
+    if not out_br:
+        y = y[:, _table(plan.br, x.device)]    # bit-reversed -> natural
     return y.reshape(*lead, N).to(x.dtype)
 
 
@@ -143,10 +145,12 @@ def _dispatch(plan: NttPlan, x: torch.Tensor, plain, kernel) -> torch.Tensor:
     return kernel(plan, x.reshape(-1, plan.N).contiguous()).reshape(*lead, plan.N)
 
 
-def ntt_forward(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
-    """[..., N] int32 COEFFICIENT -> EVALUATION: plain on CPU, kernel on CUDA."""
+def ntt_forward(plan: NttPlan, x: torch.Tensor, out_br: bool = False) -> torch.Tensor:
+    """[..., N] int32 COEFFICIENT -> EVALUATION (bit-reversed order with
+    out_br): plain on CPU, kernel on CUDA."""
     from ..kernels import ntt as kntt
-    return _dispatch(plan, x, forward_butterfly, kntt.forward)
+    return _dispatch(plan, x, functools.partial(forward_butterfly, out_br=out_br),
+                     functools.partial(kntt.forward, out_br=out_br))
 
 
 def ntt_inverse(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,9 @@ EVALUATION format: its value at psi^(2k+1) is psi^((2k+1) idx) - 1.
 
 `blind_rotate` takes the plain PyTorch version (`blind_rotate_plain`,
 the scan of fhe_tpu's boot.blind_rotate) for CPU tensors and the CUDA
-kernel (`kernels.blind_rotate`) for CUDA tensors.
+kernel (`kernels.blind_rotate`) for CUDA tensors.  `run_accumulator`
+picks the accumulator by `ntt_impl`, as fhe_tpu does: this natural-order
+rotation, or the bit-reversed ones of `boot_pallas`.
 """
 
 from __future__ import annotations
@@ -156,6 +158,36 @@ def bootstrap_core(params: TfheParams, bsk: torch.Tensor, test_vec: torch.Tensor
     return blind_rotate(params, bsk, acc, a)
 
 
+# ntt_impl -> accumulator.  fhe_tpu's NTT names compute the same transform
+# the TPU's way, so they run the default (natural-order, kernel 3) path.
+ACCUMULATORS = {None: "mega2", "mega2": "mega2", "butterfly": "mega2", "pallas": "mega2",
+                "mxu": "mega2", "lane": "mega2", "fourstep": "mega2",
+                "mega": "mega", "fused": "fused"}
+
+
+def accumulator(ntt_impl: str | None) -> str:
+    """The accumulator that `ntt_impl` selects; ValueError if none does."""
+    if ntt_impl not in ACCUMULATORS:
+        raise ValueError(f"unknown ntt_impl {ntt_impl!r}; expected one of "
+                         f"{sorted(map(str, ACCUMULATORS))}")
+    return ACCUMULATORS[ntt_impl]
+
+
+def run_accumulator(params: TfheParams, key: rgsw.BootstrapKey, test_vec: torch.Tensor,
+                    a: torch.Tensor, ntt_impl: str | None = None) -> torch.Tensor:
+    """GINX/CGGI accumulator dispatch (fhe_tpu boot.run_accumulator): test
+    vector [B, N] COEFFICIENT -> accumulator [B, 2, N] natural EVALUATION.
+    "mega": the bit-reversed whole scan (kernel 4); "fused": the
+    bit-reversed scan one step per launch (kernel 5); otherwise the
+    natural-order whole scan (kernel 3)."""
+    impl = accumulator(ntt_impl)
+    if impl == "mega2":
+        return bootstrap_core(params, key.bsk, test_vec, a)
+    from . import boot_pallas
+    core = boot_pallas.bootstrap_core_mega if impl == "mega" else boot_pallas.bootstrap_core_fused
+    return core(params, key, test_vec, a)
+
+
 def extract_lwe(params: TfheParams, acc: torch.Tensor, b_offset: int,
                 p: int = 4) -> lwe.LweCiphertext:
     """Transpose + constant-term extraction (EvalBinGate).
@@ -171,12 +203,13 @@ def extract_lwe(params: TfheParams, acc: torch.Tensor, b_offset: int,
 
 
 def _finish_gate(params: TfheParams, key: rgsw.BootstrapKey, gate: Gate,
-                 comb: lwe.LweCiphertext, p: int, extended: bool) -> lwe.LweCiphertext:
+                 comb: lwe.LweCiphertext, p: int, extended: bool,
+                 ntt_impl: str | None) -> lwe.LweCiphertext:
     lead = comb.batch_shape
     a = comb.a.reshape(-1, params.n).contiguous()
     b = comb.b.reshape(-1)
     tv = make_gate_test_vector(params, b, gate_constants(params, gate, p))
-    acc = bootstrap_core(params, key.bsk, tv, a)
+    acc = run_accumulator(params, key, tv, a, ntt_impl)
     ct = extract_lwe(params, acc, params.Q // (p * 2) + 1, p)
     ct = lwe.LweCiphertext(a=ct.a.reshape(*lead, params.N), b=ct.b.reshape(lead),
                            modulus=params.Q, pt_mod=p)
@@ -192,33 +225,34 @@ def _to_gate_domain(params: TfheParams, key: rgsw.BootstrapKey,
 
 def eval_bin_gate(params: TfheParams, key: rgsw.BootstrapKey, gate: Gate,
                   ct1: lwe.LweCiphertext, ct2: lwe.LweCiphertext,
-                  extended: bool = False) -> lwe.LweCiphertext:
+                  extended: bool = False, ntt_impl: str | None = None) -> lwe.LweCiphertext:
     """Two-input bootstrapped gate (binfhe-base-scheme.cpp EvalBinGate).
 
-    ct1/ct2: [B]-batched LWE ciphertexts mod q, dim n."""
+    ct1/ct2: [B]-batched LWE ciphertexts mod q, dim n; ntt_impl selects
+    the accumulator (`run_accumulator`)."""
     comb = lwe.add(_to_gate_domain(params, key, ct1), _to_gate_domain(params, key, ct2))
     if gate in (Gate.XOR, Gate.XNOR, Gate.XOR_FAST, Gate.XNOR_FAST):
         comb = lwe.add(comb, comb)
-    return _finish_gate(params, key, gate, comb, 4, extended)
+    return _finish_gate(params, key, gate, comb, 4, extended, ntt_impl)
 
 
 def eval_bin_gate_multi(params: TfheParams, key: rgsw.BootstrapKey, gate: Gate,
-                        cts: list[lwe.LweCiphertext],
-                        extended: bool = False) -> lwe.LweCiphertext:
+                        cts: list[lwe.LweCiphertext], extended: bool = False,
+                        ntt_impl: str | None = None) -> lwe.LweCiphertext:
     """3/4-input gates + MAJORITY (EvalBinGate vector overload)."""
     if gate not in (Gate.AND3, Gate.OR3, Gate.AND4, Gate.OR4, Gate.MAJORITY):
         raise ValueError(f"multi-input form not defined for {gate}")
     comb = _to_gate_domain(params, key, cts[0])
     for ct in cts[1:]:
         comb = lwe.add(comb, _to_gate_domain(params, key, ct))
-    return _finish_gate(params, key, gate, comb, comb.pt_mod, extended)
+    return _finish_gate(params, key, gate, comb, comb.pt_mod, extended, ntt_impl)
 
 
 def bootstrap(params: TfheParams, key: rgsw.BootstrapKey, ct: lwe.LweCiphertext,
-              extended: bool = False) -> lwe.LweCiphertext:
+              extended: bool = False, ntt_impl: str | None = None) -> lwe.LweCiphertext:
     """Plain refresh bootstrap (Bootstrap): shifts b by q/4, then runs the
     AND-gate pipeline on the single ciphertext."""
     q = params.q
     shifted = lwe.LweCiphertext(a=ct.a, b=add_mod(ct.b, q >> 2, q).to(torch.int32),
                                 modulus=q, pt_mod=ct.pt_mod)
-    return _finish_gate(params, key, Gate.AND, shifted, ct.pt_mod, extended)
+    return _finish_gate(params, key, Gate.AND, shifted, ct.pt_mod, extended, ntt_impl)

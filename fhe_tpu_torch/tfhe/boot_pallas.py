@@ -1,0 +1,125 @@
+"""CGGI blind rotation in bit-reversed EVALUATION order (port of
+fhe_tpu/tfhe/boot_pallas.py, `ntt_impl="mega"` and `"fused"`).
+
+The accumulator and the bootstrap key stay in bit-reversed EVAL order
+across the n steps: the inverse butterflies consume that order and the
+forward butterflies produce it, so no permutation runs inside a step.
+The test vector enters through the forward NTT with `out_br`, the key
+through `bsk_to_br`, and one gather returns the result to natural order
+before extraction.
+
+`blind_rotate_mega` (the whole scan, one launch) and `rotate_step_br` /
+`blind_rotate_fused` (one launch per step) take their plain versions for
+CPU tensors and the CUDA kernels (`kernels.blind_rotate_br`) for CUDA
+tensors; they raise on any other device and never fall back.  The plain
+versions are the natural-order plain rotation (`boot.blind_rotate_plain`)
+between two bit reversals, while the kernels index the rotation directly
+in bit-reversed order: two different computations that must agree byte
+for byte.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import blind_rotate_br as kbr
+from ..math import ntt as nttmod
+from . import boot, rgsw
+from .params import TfheParams
+
+
+def bit_reverse(params: TfheParams, x: torch.Tensor) -> torch.Tensor:
+    """The last (evaluation) axis permuted by the bit reversal, an
+    involution: natural <-> bit-reversed order."""
+    plan = nttmod.make_plan(params.N, params.Q, x.device)
+    return torch.index_select(x, -1, plan.br)
+
+
+def bsk_to_br(params: TfheParams, bsk: torch.Tensor) -> torch.Tensor:
+    """The bootstrap key's evaluation axis in bit-reversed order."""
+    return bit_reverse(params, bsk)
+
+
+def rotation_indices(params: TfheParams, a: torch.Tensor):
+    """(idx_pos, idx_neg) int32, the shape of `a`: idx_pos = ((q - a) mod q)
+    * 2N/q mod 2N, idx_neg = (2N - idx_pos) mod 2N (boot_pallas.py:312)."""
+    idx_pos, _ = boot._rotation_indices(params, a, params.q)
+    idx_neg = (2 * params.N - idx_pos) & (2 * params.N - 1)
+    return idx_pos.to(torch.int32), idx_neg.to(torch.int32)
+
+
+def _psi_powers(params: TfheParams, device) -> torch.Tensor:
+    return boot._psi_powers_mont_words(params.N, params.Q, device)
+
+
+def blind_rotate_mega_plain(params: TfheParams, bsk_br: torch.Tensor,
+                            acc_br: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 4: bsk_br [n, 2, dG2, 2, N], acc_br [B, 2, N]
+    in bit-reversed EVAL order, a [B, n] the mask mod q."""
+    rot = boot.blind_rotate_plain(params, bit_reverse(params, bsk_br),
+                                  bit_reverse(params, acc_br), a)
+    return bit_reverse(params, rot)
+
+
+def blind_rotate_mega(params: TfheParams, bsk_br: torch.Tensor, acc_br: torch.Tensor,
+                      a: torch.Tensor) -> torch.Tensor:
+    """Whole-scan CGGI accumulation in bit-reversed order: the plain version
+    for CPU tensors, kernel 4 for CUDA tensors."""
+    if acc_br.device.type == "cpu":
+        return blind_rotate_mega_plain(params, bsk_br, acc_br, a)
+    idx_pos, idx_neg = rotation_indices(params, a)
+    return kbr.blind_rotate_mega(params, bsk_br, acc_br, idx_pos, idx_neg,
+                                 _psi_powers(params, acc_br.device))
+
+
+def rotate_step_br_plain(params: TfheParams, bsk_br_i: torch.Tensor, acc_br: torch.Tensor,
+                         a_i: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 5, one step: bsk_br_i [2, dG2, 2, N], a_i [B]."""
+    return blind_rotate_mega_plain(params, bsk_br_i[None], acc_br, a_i[:, None])
+
+
+def rotate_step_br(params: TfheParams, bsk_br_i: torch.Tensor, acc_br: torch.Tensor,
+                   a_i: torch.Tensor) -> torch.Tensor:
+    """One CGGI step in bit-reversed order: the plain version for CPU
+    tensors, one launch of kernel 5 for CUDA tensors."""
+    if acc_br.device.type == "cpu":
+        return rotate_step_br_plain(params, bsk_br_i, acc_br, a_i)
+    idx_pos, idx_neg = rotation_indices(params, a_i)
+    return kbr.rotate_step_br(params, bsk_br_i, acc_br, idx_pos, idx_neg,
+                              _psi_powers(params, acc_br.device))
+
+
+def blind_rotate_fused(params: TfheParams, bsk_br: torch.Tensor, acc_br: torch.Tensor,
+                       a: torch.Tensor) -> torch.Tensor:
+    """Per-step CGGI accumulation in bit-reversed order, one step at a time
+    (fhe_tpu's lax.scan over `_step_kernel`): the plain step for CPU
+    tensors, n launches of kernel 5 for CUDA tensors."""
+    if acc_br.device.type == "cpu":
+        for i in range(bsk_br.shape[0]):
+            acc_br = rotate_step_br_plain(params, bsk_br[i], acc_br, a[:, i])
+        return acc_br
+    idx_pos, idx_neg = rotation_indices(params, a)
+    return kbr.blind_rotate_fused(params, bsk_br, acc_br, idx_pos, idx_neg,
+                                  _psi_powers(params, acc_br.device))
+
+
+def _bootstrap_core_br(rotate, params: TfheParams, key: rgsw.BootstrapKey,
+                       test_vec: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    plan = nttmod.make_plan(params.N, params.Q, test_vec.device)
+    acc1 = nttmod.ntt_forward(plan, test_vec, out_br=True)
+    acc_br = torch.stack([torch.zeros_like(acc1), acc1], dim=1)
+    rot = rotate(params, bsk_to_br(params, key.bsk), acc_br, a)
+    return bit_reverse(params, rot)
+
+
+def bootstrap_core_mega(params: TfheParams, key: rgsw.BootstrapKey,
+                        test_vec: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Test vector [B, N] COEFFICIENT -> whole-scan rotation -> accumulator
+    [B, 2, N] in natural EVAL order (boot.bootstrap_core with impl "mega")."""
+    return _bootstrap_core_br(blind_rotate_mega, params, key, test_vec, a)
+
+
+def bootstrap_core_fused(params: TfheParams, key: rgsw.BootstrapKey,
+                         test_vec: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """As bootstrap_core_mega, one launch per step (impl "fused")."""
+    return _bootstrap_core_br(blind_rotate_fused, params, key, test_vec, a)

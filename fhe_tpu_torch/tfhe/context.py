@@ -2,9 +2,11 @@
 
 A thin wrapper over the functions of lwe/rgsw/boot: parameters are static
 Python data, keys and ciphertexts are dataclasses of tensors on
-`self.device`, and every Eval* accepts batched ciphertexts.  Only the
-GINX/CGGI accumulator with a single-limb ring modulus is ported; the other
-paths raise NotImplementedError naming their ROADMAP.md item.
+`self.device` (the first CUDA card unless the caller names another
+device, such as "cpu"), and every Eval* accepts batched ciphertexts.
+`ntt_impl` selects the accumulator as in fhe_tpu (`boot.run_accumulator`).
+Only the GINX/CGGI accumulator with a single-limb ring modulus is ported;
+the other paths raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -30,17 +32,20 @@ def _rng(rng: np.random.Generator | int) -> np.random.Generator:
 @dataclasses.dataclass
 class BinFheContext:
     params: TfheParams
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
+    ntt_impl: str | None = None   # None: the natural-order whole scan (kernel 3)
 
     # -- construction -------------------------------------------------------
     @classmethod
     def generate(cls, param_set: str = "STD128", method: Method | str | None = None,
-                 device: str | torch.device = "cpu") -> "BinFheContext":
+                 device: str | torch.device = "cuda",
+                 ntt_impl: str | None = None) -> "BinFheContext":
         """method=None auto-selects from the paramset name (*_LMKCDEY sets
         get LMKCDEY, everything else GINX); an explicit incompatible method
         raises ValueError."""
         method = Method[method] if isinstance(method, str) else method
-        return cls(params=make_params(param_set, method), device=torch.device(device))
+        return cls(params=make_params(param_set, method), device=torch.device(device),
+                   ntt_impl=ntt_impl)
 
     def _require_ported(self) -> None:
         if self.params.method == Method.AP:
@@ -53,6 +58,10 @@ class BinFheContext:
     # -- key generation -----------------------------------------------------
     def key_gen(self, rng: np.random.Generator | int = 0) -> lwe.LweSecretKey:
         return lwe.keygen(self.params, _rng(rng), device=self.device)
+
+    def key_gen_n(self, rng: np.random.Generator | int = 0) -> lwe.LweSecretKey:
+        """A secret key of the ring dimension N."""
+        return lwe.keygen(self.params, _rng(rng), dim=self.params.N, device=self.device)
 
     def bt_key_gen(self, sk: lwe.LweSecretKey, rng: np.random.Generator | int = 0,
                    sk_n: lwe.LweSecretKey | None = None) -> rgsw.BootstrapKey:
@@ -88,13 +97,21 @@ class BinFheContext:
         if gate == Gate.CMUX:
             raise ValueError("CMUX takes 3 inputs")
         self._require_ported()
-        return boot.eval_bin_gate(self.params, key, gate, ct1, ct2, extended)
+        return boot.eval_bin_gate(self.params, key, gate, ct1, ct2, extended, self.ntt_impl)
 
     def eval_bin_gate_multi(self, key: rgsw.BootstrapKey, gate: Gate | str, cts,
                             extended: bool = False) -> lwe.LweCiphertext:
         gate = Gate[gate] if isinstance(gate, str) else gate
         self._require_ported()
-        return boot.eval_bin_gate_multi(self.params, key, gate, list(cts), extended)
+        return boot.eval_bin_gate_multi(self.params, key, gate, list(cts), extended,
+                                        self.ntt_impl)
+
+    def eval_cmux(self, key: rgsw.BootstrapKey, ct0: lwe.LweCiphertext,
+                  ct1: lwe.LweCiphertext, ct_sel: lwe.LweCiphertext) -> lwe.LweCiphertext:
+        """CMUX by three NANDs (EvalBinGate vector overload): ct_sel ? ct1 : ct0."""
+        nand1 = self.eval_bin_gate(key, Gate.NAND, ct0, self.eval_not(ct_sel))
+        nand2 = self.eval_bin_gate(key, Gate.NAND, ct1, ct_sel)
+        return self.eval_bin_gate(key, Gate.NAND, nand1, nand2)
 
     def eval_not(self, ct: lwe.LweCiphertext) -> lwe.LweCiphertext:
         return lwe.not_(ct)
@@ -110,10 +127,21 @@ class BinFheContext:
         a = torch.zeros(v.shape + (n,), dtype=torch.int32, device=self.device)
         return lwe.LweCiphertext(a=a, b=b, modulus=q, pt_mod=4)
 
+    def key_switch_gen(self, sk: lwe.LweSecretKey, sk_n: lwe.LweSecretKey,
+                       rng: np.random.Generator | int = 0) -> lwe.LweSwitchingKey:
+        """KeySwitchGen: the LWE switching key from sk_n (dim N) to sk (dim n)."""
+        return lwe.key_switch_gen(self.params, sk, sk_n, _rng(rng))
+
+    def switch_ct_to_qn(self, ksk: lwe.LweSwitchingKey,
+                        ct: lwe.LweCiphertext) -> lwe.LweCiphertext:
+        """SwitchCTtoqn: ModSwitch -> KeySwitch -> ModSwitch an extended
+        (N, Q) ciphertext to (n, q)."""
+        return lwe.switch_ct_to_qn(self.params, ksk, ct)
+
     def bootstrap(self, key: rgsw.BootstrapKey, ct: lwe.LweCiphertext,
                   extended: bool = False) -> lwe.LweCiphertext:
         self._require_ported()
-        return boot.bootstrap(self.params, key, ct, extended)
+        return boot.bootstrap(self.params, key, ct, extended, self.ntt_impl)
 
     # -- functional bootstrapping -------------------------------------------
     def eval_func(self, key, ct, lut):

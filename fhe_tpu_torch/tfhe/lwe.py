@@ -75,7 +75,7 @@ def _residues(x: np.ndarray, device) -> torch.Tensor:
 
 
 def keygen(params: TfheParams, rng: np.random.Generator, dim: int | None = None,
-           device="cpu") -> LweSecretKey:
+           device="cuda") -> LweSecretKey:
     """Ternary (or Gaussian) secret of dimension n (lwe-pke.cpp:48-56)."""
     dim = params.n if dim is None else dim
     if params.key_dist == KeyDist.GAUSSIAN:

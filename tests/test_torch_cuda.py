@@ -14,7 +14,7 @@ import torch
 from fhe_tpu_torch import BinFheContext
 from fhe_tpu_torch.kernels import launch_counts
 from fhe_tpu_torch.math import ntt
-from fhe_tpu_torch.tfhe import boot, make_params
+from fhe_tpu_torch.tfhe import boot, boot_pallas, make_params
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +46,7 @@ def test_ntt_kernels_match_plain(rows, N, cuda, gen):
     x = _residues(gen, q, (rows, N), cuda)
     f = ntt.ntt_forward(plan, x)
     _same(f, ntt.forward_butterfly(plan, x))
+    _same(ntt.ntt_forward(plan, x, out_br=True), ntt.forward_butterfly(plan, x, out_br=True))
     i = ntt.ntt_inverse(plan, f)
     _same(i, ntt.inverse_butterfly(plan, f))
     _same(i, x)
@@ -69,18 +70,38 @@ def test_blind_rotate_kernel_matches_plain(name, steps, cuda, gen):
     _same(boot.blind_rotate(p, bsk, acc, a), boot.blind_rotate_plain(p, bsk, acc, a))
 
 
-def test_toy_gate_on_card_matches_cpu(cuda):
-    """The whole TOY gate on the card equals the plain CPU pipeline."""
+@pytest.mark.parametrize("name,steps", [("TOY", 64), ("STD128", 16)])
+def test_blind_rotate_br_kernels_match_plain(name, steps, cuda, gen):
+    """Kernel 4 (whole scan), kernel 5 (one step) and kernel 5's n-launch
+    loop, bit-reversed order, against their plain versions."""
+    p = make_params(name)
+    acc = _residues(gen, p.Q, (8, 2, p.N), cuda)
+    bsk = _residues(gen, p.Q, (steps, 2, p.digits_g2, 2, p.N), cuda)
+    a = _residues(gen, p.q, (8, steps), cuda)
+    want = boot_pallas.blind_rotate_mega_plain(p, bsk, acc, a)
+    _same(boot_pallas.blind_rotate_mega(p, bsk, acc, a), want)
+    _same(boot_pallas.blind_rotate_fused(p, bsk, acc, a), want)
+    _same(boot_pallas.rotate_step_br(p, bsk[0], acc, a[:, 0]),
+          boot_pallas.rotate_step_br_plain(p, bsk[0], acc, a[:, 0]))
+
+
+KERNEL_OF = {None: "blind_rotate", "mega": "blind_rotate_mega", "fused": "rotate_step_br"}
+
+
+@pytest.mark.parametrize("impl", [None, "mega", "fused"])
+def test_toy_gate_on_card_matches_cpu(impl, cuda):
+    """The whole TOY gate on the card, through each accumulator, equals the
+    plain CPU pipeline."""
     outs = []
     for dev in ("cpu", cuda):
-        ctx = BinFheContext.generate("TOY", device=dev)
+        ctx = BinFheContext.generate("TOY", device=dev, ntt_impl=impl)
         sk = ctx.key_gen(1)
         key = ctx.bt_key_gen(sk, 2)
         m1, m2 = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1])
-        before = launch_counts()["blind_rotate"]
+        before = launch_counts()[KERNEL_OF[impl]]
         out = ctx.eval_bin_gate(key, "XOR", ctx.encrypt(sk, m1, 3), ctx.encrypt(sk, m2, 4))
         assert ctx.decrypt(sk, out).tolist() == [0, 1, 1, 0]
-        assert (launch_counts()["blind_rotate"] > before) == (dev != "cpu")
+        assert (launch_counts()[KERNEL_OF[impl]] > before) == (dev != "cpu")
         outs.append(out.to("cpu"))
     _same(outs[1].a, outs[0].a)
     _same(outs[1].b, outs[0].b)

@@ -66,7 +66,7 @@ def _eq_ct(jct, tct):
 def toy():
     """fhe_tpu and port TOY contexts with keys from the same seed, and the
     fhe_tpu key carried across by convert."""
-    jc, tc = JContext.generate("TOY"), BinFheContext.generate("TOY")
+    jc, tc = JContext.generate("TOY"), BinFheContext.generate("TOY", device="cpu")
     jsk, tsk = jc.key_gen(21), tc.key_gen(21)
     bsk_device = j_rgsw._bsk_device
     # fhe_tpu's BSK assembly under one jit: the same exact integer ops, one
@@ -77,7 +77,7 @@ def toy():
         jkey = jc.bt_key_gen(jsk, 22)
     tkey = tc.bt_key_gen(tsk, 22)
     ckey = convert.bootstrap_key(np.asarray(jkey.bsk), np.asarray(jkey.ksk.a),
-                                 np.asarray(jkey.ksk.b))
+                                 np.asarray(jkey.ksk.b), device="cpu")
     return jc, tc, jsk, tsk, jkey, tkey, ckey
 
 
@@ -102,9 +102,9 @@ def test_gate_matches_fhe_tpu(toy, gate, rng):
     m1 = np.array([0, 0, 1, 1, 0, 1])
     m2 = np.array([0, 1, 0, 1, 1, 1])
     jct1, jct2 = jc.encrypt(jsk, m1, 31), jc.encrypt(jsk, m2, 32)
-    tct1, tct2 = (convert.ciphertext(np.asarray(c.a), np.asarray(c.b), c.modulus)
+    tct1, tct2 = (convert.ciphertext(np.asarray(c.a), np.asarray(c.b), c.modulus, device="cpu")
                   for c in (jct1, jct2))
-    sk = convert.secret_key(np.asarray(jsk.s))
+    sk = convert.secret_key(np.asarray(jsk.s), device="cpu")
     want_ext = jc.eval_bin_gate(jkey, gate, jct1, jct2, extended=True)
     got_ext = tc.eval_bin_gate(ckey, gate, tct1, tct2, extended=True)
     _eq_ct(want_ext, got_ext)
@@ -129,7 +129,7 @@ def test_multi_input_gates_bootstrap_and_constants(toy, rng):
 
 def _sk_from_ref(vals, mod):
     v = vals.astype(np.int64)
-    return convert.secret_key(np.where(v > mod // 2, v - mod, v).astype(np.int32))
+    return convert.secret_key(np.where(v > mod // 2, v - mod, v).astype(np.int32), device="cpu")
 
 
 def test_gate_with_reference_bootstrap_key():
@@ -154,9 +154,9 @@ def test_gate_with_reference_bootstrap_key():
     bits1, bits2 = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1])
     rows1 = bits1 * per + np.array([0, 1, 2, 3])
     rows2 = bits2 * per + np.array([1, 2, 3, 0])
-    ct1 = convert.ciphertext(a[rows1], b[rows1], m["q"])
-    ct2 = convert.ciphertext(a[rows2], b[rows2], m["q"])
-    ctx = BinFheContext(params=params)
+    ct1 = convert.ciphertext(a[rows1], b[rows1], m["q"], device="cpu")
+    ct2 = convert.ciphertext(a[rows2], b[rows2], m["q"], device="cpu")
+    ctx = BinFheContext(params=params, device=torch.device("cpu"))
     for gate, fn in TRUTH.items():
         out = ctx.eval_bin_gate(key, gate, ct1, ct2)
         got = ctx.decrypt(sk, out, p=4).numpy() % 2
@@ -167,7 +167,7 @@ def test_ternary_secret_guard():
     params = make_params("TOY")
     rng = np.random.default_rng(1)
     sk = lwe.LweSecretKey(s=torch.tensor([0, 2, -1] + [0] * (params.n - 3), dtype=torch.int32))
-    sk_n = lwe.keygen(params, rng, dim=params.N)
+    sk_n = lwe.keygen(params, rng, dim=params.N, device="cpu")
     with pytest.raises(ValueError, match="ternary"):
         rgsw.bsk_gen(params, sk, sk_n, rng)
 
@@ -177,10 +177,35 @@ def test_method_mismatch_raises():
         make_params("STD128_LMKCDEY", Method.GINX)
     with pytest.raises(ValueError):
         make_params("STD128", Method.LMKCDEY)
-    ctx = BinFheContext.generate("STD128_LMKCDEY")
+    ctx = BinFheContext.generate("STD128_LMKCDEY", device="cpu")
     assert ctx.params.method == Method.LMKCDEY
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ctx.bt_key_gen(ctx.key_gen(0))
+
+
+def test_context_defaults_to_the_card():
+    """Without a device the context, and so its keys and ciphertexts, is on
+    the first CUDA card (nothing is allocated here)."""
+    ctx = BinFheContext.generate("TOY")
+    assert ctx.device.type == "cuda" and ctx.ntt_impl is None
+    assert BinFheContext(params=make_params("TOY")).device.type == "cuda"
+
+
+def test_context_key_switch_methods_match_fhe_tpu():
+    """key_gen_n and key_switch_gen give fhe_tpu's keys from the same seeds;
+    switch_ct_to_qn takes an (N, Q) ciphertext to a decryptable (n, q) one."""
+    jc, tc = JContext.generate("TOY"), BinFheContext.generate("TOY", device="cpu")
+    jsk, tsk = jc.key_gen(5), tc.key_gen(5)
+    jskn, tskn = jc.key_gen_n(6), tc.key_gen_n(6)
+    assert tskn.s.shape == (tc.params.N,)
+    _eq(jskn.s, tskn.s)
+    jk, tk = jc.key_switch_gen(jsk, jskn, 7), tc.key_switch_gen(tsk, tskn, 7)
+    _eq(jk.a, tk.a)
+    _eq(jk.b, tk.b)
+    m = np.array([0, 1, 1, 0, 1])
+    out = tc.switch_ct_to_qn(tk, tc.encrypt(tskn, m, 8, modulus=tc.params.Q))
+    assert (out.n, out.modulus) == (tc.params.n, tc.params.q)
+    np.testing.assert_array_equal(tc.decrypt(tsk, out).numpy(), m)
 
 
 def test_params_match_fhe_tpu():
@@ -203,7 +228,7 @@ def test_port_runs_a_gate_without_jax():
         import numpy as np
         import fhe_tpu_torch
         from fhe_tpu_torch import BinFheContext
-        ctx = BinFheContext.generate("TOY")
+        ctx = BinFheContext.generate("TOY", device="cpu")
         sk = ctx.key_gen(1)
         key = ctx.bt_key_gen(sk, 2)
         m1, m2 = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1])

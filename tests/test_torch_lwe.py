@@ -41,9 +41,9 @@ def _keys(name, seed, n=None, N=None):
     jp, tp = j_make_params(name), t_make_params(name)
     jr, tr = np.random.default_rng(seed), np.random.default_rng(seed)
     jsk = jlwe.keygen(jp, jr, dim=n)
-    tsk = tlwe.keygen(tp, tr, dim=n)
+    tsk = tlwe.keygen(tp, tr, dim=n, device="cpu")
     jskn = jlwe.keygen(jp, jr, dim=N or jp.N)
-    tskn = tlwe.keygen(tp, tr, dim=N or tp.N)
+    tskn = tlwe.keygen(tp, tr, dim=N or tp.N, device="cpu")
     return jp, tp, jsk, tsk, jskn, tskn
 
 
@@ -87,7 +87,7 @@ def test_mod_switch_matches(name, to, rng):
     b = rng.integers(0, Q, size=16).astype(np.uint32)
     q_to = getattr(jp, to)
     jct = j_mod_switch(jlwe.LweCiphertext(a=jnp.asarray(a), b=jnp.asarray(b), modulus=Q), q_to)
-    tct = tlwe.mod_switch(convert.ciphertext(a, b, Q), q_to)
+    tct = tlwe.mod_switch(convert.ciphertext(a, b, Q, device="cpu"), q_to)
     _eq_ct(jct, tct)
 
 
