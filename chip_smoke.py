@@ -9,7 +9,9 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
 
 1. device: card name and power limit, torch, nvcc, triton;
 2. build: compiles every kernel from fhe_tpu_torch/csrc/ (nvcc, sm_90a);
-3. kernels against their plain PyTorch versions on the card, byte-equal;
+3. kernels against their plain PyTorch versions on the card, byte-equal
+   (the blind rotations at batch 1, 8 and an odd 4097, which the wrappers
+   run two ciphertexts to a block with one masked lane);
 4. main path, once per accumulator: STD128 keygen (once), AND and XOR on
    4096 independent random bit pairs, one single-gate AND, CMUX at batch
    4096 and the batch API's ASYNC AND, decrypted against the truth tables,
@@ -18,7 +20,11 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    identical;
 5. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
-   path's shapes, beside its bound (the least time the card could take).
+   path's shapes, beside its bound (the least time the card could take);
+   the blind-rotation kernels' resident blocks per SM at batch 4096.
+
+The build lines give each blind-rotation kernel's registers and spills
+(`-Xptxas -v`); a spill at STD128's shape fails the run.
 
 It exits non-zero, and prints no result, when there is no CUDA device or
 any phase fails.  Its last three lines are a JSON object of the kernels,
@@ -31,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -45,10 +52,10 @@ IMPLS = (None, "mega", "fused")
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "ntt_forward": ("fhe_tpu_torch/csrc/ntt.cu", "fhe_tpu/math/ntt_pallas.py:64"),
     "ntt_inverse": ("fhe_tpu_torch/csrc/ntt.cu", "fhe_tpu/math/ntt_pallas.py:79"),
-    "blind_rotate": ("fhe_tpu_torch/csrc/blind_rotate.cu", "fhe_tpu/tfhe/boot_mxu.py:230"),
-    "blind_rotate_mega": ("fhe_tpu_torch/csrc/blind_rotate_br.cu",
+    "blind_rotate": ("fhe_tpu_torch/csrc/blind_rotate.cuh", "fhe_tpu/tfhe/boot_mxu.py:230"),
+    "blind_rotate_mega": ("fhe_tpu_torch/csrc/blind_rotate.cuh",
                           "fhe_tpu/tfhe/boot_pallas.py:235"),
-    "rotate_step_br": ("fhe_tpu_torch/csrc/blind_rotate_br.cu",
+    "rotate_step_br": ("fhe_tpu_torch/csrc/blind_rotate.cuh",
                        "fhe_tpu/tfhe/boot_pallas.py:153"),
 }
 # the accumulator kernel each ntt_impl runs, and its launches per gate
@@ -87,14 +94,42 @@ def device_report(card: str) -> None:
     print(f"[device] triton importable: {spec is not None}")
 
 
+def kernel_reports(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) per compiled kernel in the
+    ptxas report; blind-rotation kernels named by their template arguments
+    (log2 N, dG2, C[, natural])."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            args = ", ".join(re.findall(r"L[ib](\d+)E", mangled))
+            kind = ("scan_kernel" if "scan_kernel" in mangled else
+                    "step_kernel" if "step_kernel" in mangled else
+                    "ntt_forward_kernel" if "forward" in mangled else "ntt_inverse_kernel")
+            name, spill = f"{kind}<{args}>" if args else kind, 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def build() -> None:
     from fhe_tpu_torch.kernels import _build
     lib = _build.library()
     print(f"[build] {'built' if lib.built else 'loaded cached'} {lib.path.name} "
-          f"in {lib.seconds:.2f} s")
-    for line in lib.log.splitlines():
-        if "Used" in line or "Compiling entry" in line:
-            print(f"[build] {line.strip()}")
+          f"in {lib.seconds:.2f} s ({len(_build.units())} units, one nvcc each)")
+    reports = kernel_reports(lib.log)
+    for name, regs, spill in reports:
+        print(f"[build] {name}: {regs} registers, {spill} bytes spill stores")
+    spilled = [name for name, _, spill in reports if name.startswith(("scan_kernel<10, 4,",
+               "step_kernel<10, 4,")) and spill]
+    if lib.built and spilled:
+        fail(f"kernels at STD128's shape spill: {spilled}")
 
 
 class Errors:
@@ -119,7 +154,7 @@ def _residues(rng, high, shape, dev):
 
 def check_kernels(dev, errors: Errors) -> None:
     from fhe_tpu_torch.math import ntt
-    from fhe_tpu_torch.tfhe import boot, boot_pallas, make_params
+    from fhe_tpu_torch.tfhe import boot, boot_pallas, make_params, rgsw
     rng = np.random.default_rng(SEED + 1)
     q = 134215681
     for rows, N in [(64, 1024), (4024, 1024), (64, 512)]:
@@ -133,13 +168,14 @@ def check_kernels(dev, errors: Errors) -> None:
         i = ntt.ntt_inverse(plan, f)
         errors.compare("ntt_inverse", i, ntt.inverse_butterfly(plan, f), f"ntt_inverse [{rows}, {N}]")
         errors.compare("ntt_inverse", i, x, f"ntt_inverse(ntt_forward) [{rows}, {N}] round trip")
-    for name, steps in [("STD128", 16), ("TOY", 64)]:
+    for name, steps, B in [("STD128", 16, 8), ("STD128", 16, 1), ("STD128", 16, 4097),
+                           ("TOY", 64, 8)]:
         p = make_params(name)
-        acc = _residues(rng, p.Q, (8, 2, p.N), dev)
+        acc = _residues(rng, p.Q, (B, 2, p.N), dev)
         bsk = _residues(rng, p.Q, (steps, 2, p.digits_g2, 2, p.N), dev)
-        a = _residues(rng, p.q, (8, steps), dev)
-        what = f"{name} B=8 steps={steps} random key"
-        errors.compare("blind_rotate", boot.blind_rotate(p, bsk, acc, a),
+        a = _residues(rng, p.q, (B, steps), dev)
+        what = f"{name} B={B} steps={steps} random key"
+        errors.compare("blind_rotate", boot.blind_rotate(p, rgsw.BootstrapKey(bsk, None), acc, a),
                        boot.blind_rotate_plain(p, bsk, acc, a), f"blind_rotate {what}")
         want = boot_pallas.blind_rotate_mega_plain(p, bsk, acc, a)
         errors.compare("blind_rotate_mega", boot_pallas.blind_rotate_mega(p, bsk, acc, a), want,
@@ -148,7 +184,7 @@ def check_kernels(dev, errors: Errors) -> None:
                        f"rotate_step_br x {steps} launches (blind_rotate_fused) {what}")
         errors.compare("rotate_step_br", boot_pallas.rotate_step_br(p, bsk[0], acc, a[:, 0]),
                        boot_pallas.rotate_step_br_plain(p, bsk[0], acc, a[:, 0]),
-                       f"rotate_step_br one step {name} B=8")
+                       f"rotate_step_br one step {name} B={B}")
     torch.cuda.synchronize()
 
 
@@ -262,13 +298,19 @@ def _nbytes(*tensors) -> int:
 
 
 def step_multiplies(p) -> int:
-    """32-bit integer multiplies of one CGGI step of one ciphertext: a Shoup
-    product is 3, a Montgomery product 4; 2 inverse NTTs with the N^-1
-    scale, dG2 forward NTTs, 2 x 2 x dG2 external-product rows, 2 x 2
-    monomial products, 2 monomial indices per slot."""
+    """32-bit integer multiplies of one CGGI step of one ciphertext, as the
+    step (csrc/cggi_step.cuh) does them: a Shoup product is 3 (low, high,
+    low); a 32 x 32 -> 64-bit product 2 (its low and high words); a REDC 2.
+    2 inverse NTTs with the N^-1 scale and dG2 forward NTTs, one Shoup
+    product a butterfly; per slot, the external product's 2 signs x 2
+    columns each sum dG2 64-bit products and reduce once, the monomial
+    multiply-add's 2 columns each sum two and reduce once, and the 2
+    monomial indices are one multiply each."""
     butterflies = p.N // 2 * (p.N.bit_length() - 1)
     ntts = 2 * (3 * butterflies + 3 * p.N) + p.digits_g2 * 3 * butterflies
-    return ntts + 4 * p.digits_g2 * p.N * 4 + 4 * p.N * 4 + 2 * p.N
+    external = 2 * 2 * (2 * p.digits_g2 + 2) * p.N
+    monomial = 2 * (2 * 2 + 2) * p.N
+    return ntts + external + monomial + 2 * p.N
 
 
 def bound(nbytes: int, muls: int, int_peak: float):
@@ -299,13 +341,22 @@ def timings(dev, ctx, key, cts, errors: Errors, card: str) -> dict:
           f"multiply peak {int_peak / 1e12:.3f} T/s = {sms} SMs x {IMUL_PER_CLOCK_PER_SM}/clock "
           f"x {clock / 1e9:.3f} GHz max SM clock (derived, not a data-sheet rate)")
 
+    from fhe_tpu_torch.kernels import blind_rotate as kbr
+    c = kbr.choose_c(BATCH, sms)
+    for kind in kbr.KINDS:
+        blocks = kbr.occupancy(p, c, kind)
+        print(f"[occupancy] {kind} blind-rotation kernel, batch {BATCH}: {c} ciphertexts x "
+              f"{p.N // 8} threads a block, {blocks} resident blocks per SM")
+        if blocks < 2:
+            fail(f"{kind} blind-rotation kernel: {blocks} resident block per SM at batch {BATCH}")
+
     rng = np.random.default_rng(SEED + 2)
     plan = ntt.make_plan(p.N, p.Q, dev)
     x_f = _residues(rng, p.Q, (BATCH, p.N), dev)            # the test vectors
     x_i = _residues(rng, p.Q, (2 * BATCH, p.N), dev)        # extract_lwe
     acc = _residues(rng, p.Q, (BATCH, 2, p.N), dev)
     a = _residues(rng, p.q, (BATCH, p.n), dev)
-    bsk_br = boot_pallas.bsk_to_br(p, key.bsk)
+    bsk_br = key.bsk_br
     pows = boot._psi_powers_mont_words(p.N, p.Q, dev)
     twiddles = _nbytes(plan.fwd_w, plan.fwd_ws)
     butterflies = p.N // 2 * (p.N.bit_length() - 1)
@@ -326,7 +377,7 @@ def timings(dev, ctx, key, cts, errors: Errors, card: str) -> dict:
                         lambda: ntt.inverse_butterfly(plan, x_i), None, 1, 5, 5,
                         _nbytes(x_i, x_i) + twiddles, 2 * BATCH * 3 * (butterflies + p.N)),
         "blind_rotate": (f"[{BATCH}, 2, {p.N}] x {p.n} steps, STD128 key",
-                         lambda: boot.blind_rotate(p, key.bsk, acc, a),
+                         lambda: boot.blind_rotate(p, key, acc, a),
                          lambda: boot.blind_rotate_plain(p, key.bsk, acc, a), None, 1, 3, 1,
                          rot_bytes, step_muls * p.n),
         "blind_rotate_mega": (f"[{BATCH}, 2, {p.N}] x {p.n} steps, STD128 key, bit-reversed",

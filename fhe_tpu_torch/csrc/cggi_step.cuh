@@ -1,116 +1,368 @@
-// One CGGI (GINX) accumulator step for one ciphertext, run by a whole
-// block: the device function shared by the three blind-rotation kernels
-// (blind_rotate.cu: the natural-order whole scan; blind_rotate_br.cu: the
-// bit-reversed whole scan and the bit-reversed single step).
+// One CGGI (GINX) accumulator step, the device code shared by the
+// whole-scan kernel in both orders and the single-step kernel
+// (blind_rotate.cuh).
 //
 // What it computes (fhe_tpu/tfhe/boot.py blind_rotate; rgsw.py
-// signed_digit_decompose / external_product):
-//   c      = INTT(acc)                               [2, N] COEFF
-//   d_r    = balanced base-Bg digits 1..dG-1 of c, r = 2t + poly, in [0, Q)
-//   D_r    = NTT(d_r)                                [dG2, N] EVAL
-//   ep_s   = sum_r mont_mul(D_r, bsk[s, r, :, :])    s = 0 (+), 1 (-)
-//   acc   += mont_mul(ep_0, X^idx_pos - 1) + mont_mul(ep_1, X^idx_neg - 1)
-// with idx_neg = 2N - idx_pos mod 2N.  X^e in EVAL form at the natural slot
-// j is psi^((2j+1) e mod 2N), looked up in the [2N] Montgomery table `pw`.
+// signed_digit_decompose / external_product), per ciphertext:
+//   c    = INTT(acc)                                [2, N] COEFF
+//   d_r  = balanced base-Bg digits 1..dG-1 of c, r = 2t + poly, in [0, Q)
+//   D_r  = NTT(d_r)                                 [dG2, N] EVAL
+//   ep_s = sum_r D_r * bsk[s, r, :, :] * 2^-32      s = 0 (+), 1 (-)
+//   acc += ep_0 (X^idx_pos - 1) + ep_1 (X^idx_neg - 1)
+// with X^e at slot j = psi^((2j+1) e mod 2N), looked up in the [2N]
+// Montgomery table `pw`.  The step works in bit-reversed EVAL order
+// (position x holds slot brev(x)): the inverse stages take that order and
+// the forward stages leave it, so no permutation runs inside the step.
 //
-// Orders.  kBitReversed = false: acc and the key are in natural EVAL order
-// (fhe_tpu boot_mxu); position k holds slot k.  kBitReversed = true: both
-// are in bit-reversed EVAL order (fhe_tpu boot_pallas); position k holds
-// slot brev(k).  The inverse stages take bit-reversed input and the forward
-// stages leave bit-reversed output (ntt.cuh), so in bit-reversed order the
-// accumulator goes into the inverse NTT as it is and the digits come out in
-// the key's order; in natural order both sides go through brev.
+// What bounds it on the H100 is integer issue: 32-bit add, shift, logic,
+// compare and multiply all run at 64 per clock per SM on compute
+// capability 9.0.  The design spends as few of those, and as few barriers
+// and shared-memory passes, as it can:
+// - Compile-time shapes.  LogN, dG2 and C are template parameters: every
+//   stage, digit and external-product loop unrolls and every index is a
+//   constant or one add from a per-thread base.
+// - Register-resident rounds.  A ciphertext has G = N/8 threads.  Each NTT
+//   is three or four rounds; a round runs up to 4 butterfly stages on 8 or
+//   16 values in a thread's registers, and rounds exchange through shared
+//   memory.  Rounds cover position bits {0,1,2} | 3..L-4 | {L-3,L-2,L-1}
+//   (the inverse low to high, the forward high to low), so a step has 4
+//   barriers at N <= 1024 and 6 at N = 2048, against 23 before.
+// - The accumulator in registers.  Thread g owns positions 8g..8g+7 of
+//   both accumulator polys for the whole scan: the first inverse round and
+//   the last forward round work on exactly those positions, so the
+//   accumulate, the next step's first inverse round and the external
+//   product between them never touch shared memory.
+// - The digit split in registers.  The last inverse round and the first
+//   forward round both pair positions at strides N/2, N/4, N/8: thread g
+//   takes positions g + j N/8 through the last inverse round, the N^-1
+//   scale, the signed digits and the first forward round of each digit
+//   poly, and stores only the forward round's output.
+// - Lazy reduction (Q < 2^30, so 4Q < 2^32).  Harvey butterflies keep the
+//   forward NTT in [0, 4Q) and the inverse in [0, 2Q), with Shoup twiddles
+//   that accept any 32-bit input; the external product sums dG2 64-bit
+//   products and reduces each sum once (REDC), and so does the monomial
+//   multiply-add.  The accumulator is canonical between steps, so every
+//   result is byte-identical to the plain versions.
+// - Twiddles.  A round's twiddles come from the tables once per round and
+//   item (shared memory in the whole scan, loaded once per block; global
+//   memory, through L1, in the single step).
+// - Key reuse.  A block holds C ciphertexts in adjacent lanes (thread
+//   C g + c): the C lanes of one position group load the same key words in
+//   one instruction, so each key sector fetched from L2 serves C
+//   ciphertexts and the key's L2 traffic per gate falls by C.
+// - Bank conflicts.  The exchange buffers interleave the C ciphertexts word
+//   by word and XOR-swizzle each N-word row (`word`), so that every
+//   exchange is free of bank conflicts.
 #pragma once
 
-#include "ntt.cuh"
+#include <cstdint>
+
+#include "cggi_launch.h"
 
 namespace fhe {
+namespace cggi {
 
-struct CggiParams {
-  int N, logN, dg2, dg, g_bits, offset;
-  uint32_t Q, qinv_neg, ninv, ninv_s, r1;
+// The NTT plan's tables and the monomial table: in shared memory (the whole
+// scan, loaded once per block) or in global memory (the single step, read
+// through L1).
+struct Tables {
+  const uint32_t* fwd_w;
+  const uint32_t* fwd_ws;
+  const uint32_t* inv_w;
+  const uint32_t* inv_ws;
+  const uint32_t* pw;
 };
 
-// acc [2, N], work [dG2, N] and pw [2N] in shared memory; bsk_step the
-// step's [2, dG2, 2, N] Montgomery key in global memory.  Starts and ends
-// synchronised.
-template <bool kBitReversed>
-__device__ __forceinline__ void cggi_step(uint32_t* acc, uint32_t* work,
-                                          const uint32_t* pw,
-                                          const uint32_t* __restrict__ bsk_step,
-                                          uint32_t idx_pos, uint32_t idx_neg,
-                                          const uint32_t* __restrict__ fwd_w,
-                                          const uint32_t* __restrict__ fwd_ws,
-                                          const uint32_t* __restrict__ inv_w,
-                                          const uint32_t* __restrict__ inv_ws,
-                                          const CggiParams& p) {
-  const int N = p.N;
-  const uint32_t Q = p.Q;
-  const uint32_t two_n_mask = 2 * N - 1;
+// x in [0, 2m) -> [0, m); also [0, 2^32) -> x or x - m, whichever is smaller.
+__device__ __forceinline__ uint32_t reduce(uint32_t x, uint32_t m) { return min(x, x - m); }
 
-  // acc -> work[0..1] in bit-reversed order, then the inverse NTT
-  for (int k = threadIdx.x; k < 2 * N; k += blockDim.x) {
-    const int poly = k >> p.logN;
-    const int kk = k & (N - 1);
-    work[poly * N + (kBitReversed ? kk : brev(kk, p.logN))] = acc[k];
+// a * w mod q in [0, 2q) for any 32-bit a; ws = floor(w 2^32 / q), w < q.
+__device__ __forceinline__ uint32_t shoup_lazy(uint32_t a, uint32_t w, uint32_t ws,
+                                               uint32_t q) {
+  return a * w - __umulhi(a, ws) * q;
+}
+
+// t * 2^-32 mod q in [0, t / 2^32 + q) (Montgomery REDC of a 64-bit value).
+__device__ __forceinline__ uint32_t redc(uint64_t t, uint32_t q, uint32_t qinv_neg) {
+  const uint32_t lo = static_cast<uint32_t>(t);
+  const uint32_t m = lo * qinv_neg;
+  return static_cast<uint32_t>(t >> 32) + __umulhi(m, q) + (lo != 0u);
+}
+
+// W butterfly stages on v[k], the values at positions
+// (hi << (B0 + W)) + (k << B0) + lo (k < 2^W, lo < 2^B0): the stages on
+// position bits B0..B0+W-1, inverse (Gentleman-Sande) low bit first, forward
+// (Cooley-Tukey) high bit first.  The butterfly on bit b of the pair at x
+// takes entry (N + x) >> (b + 1) of its table, in both directions
+// (fhe_tpu/math/ntt.py forward_butterfly / inverse_butterfly).  Inverse:
+// [0, 2Q) in and out; forward: [0, 4Q) in and out.
+template <bool kFwd, int LogN, int B0, int W>
+__device__ __forceinline__ void ntt_round(uint32_t (&v)[1 << W], int hi, const Tables& t,
+                                          uint32_t q) {
+  const uint32_t two_q = 2 * q;
+  const uint32_t* tw = kFwd ? t.fwd_w : t.inv_w;
+  const uint32_t* tws = kFwd ? t.fwd_ws : t.inv_ws;
+#pragma unroll
+  for (int s = 0; s < W; ++s) {
+    const int u = kFwd ? W - 1 - s : s;
+    const int tb = ((1 << (LogN - B0 - W)) + hi) << (W - 1 - u);
+#pragma unroll
+    for (int k = 0; k < (1 << W); ++k) {
+      if (k & (1 << u)) continue;
+      const int ti = tb + (k >> (u + 1));
+      const uint32_t w = tw[ti], ws = tws[ti];
+      uint32_t& x = v[k];
+      uint32_t& y = v[k | (1 << u)];
+      if (kFwd) {
+        const uint32_t a = reduce(x, two_q);
+        const uint32_t t = shoup_lazy(y, w, ws, q);
+        x = a + t;
+        y = a - t + two_q;
+      } else {
+        const uint32_t sum = x + y;
+        const uint32_t diff = x - y + two_q;
+        x = reduce(sum, two_q);
+        y = shoup_lazy(diff, w, ws, q);
+      }
+    }
+  }
+}
+
+// Word of position x of row `row`, ciphertext lane c, in an exchange buffer
+// of N-word rows with C ciphertexts interleaved word by word.  The swizzle
+// XORs bank bits 0-2 with position bits kBeta..kBeta+2 and bank bits
+// 3..kBeta-1 with position bits 7.., kBeta = log2(32 / C) bank bits per
+// ciphertext: then the lanes of every round below hit distinct banks.
+template <int LogN, int C>
+__device__ __forceinline__ int word(int row, int x, int c) {
+  constexpr int kBeta = C == 1 ? 5 : 4;
+  const int sx = x ^ ((x >> kBeta) & 7) ^ (((x >> 7) & ((1 << (kBeta - 3)) - 1)) << 3);
+  return ((row << LogN) + sx) * C + c;
+}
+
+// Item `it` of a middle round over bits [B0, B0 + W): returns its first
+// position and sets hi, its position bits above the round.  The lanes of a
+// warp take consecutive items; where B0 = 3 the item bits 3-4 (which vary
+// across a warp) go to position bits 7-8, the bits the swizzle spreads.
+template <int B0, int W>
+__device__ __forceinline__ int item_base(int it, int& hi) {
+  hi = it >> B0;
+  if constexpr (B0 == 3 && B0 + W < 7) {
+    constexpr int p0 = 7 - (B0 + W);
+    const int lane = hi & 3, rest = hi >> 2;
+    hi = (rest & ((1 << p0) - 1)) | (lane << p0) | ((rest >> p0) << (p0 + 2));
+  }
+  return (hi << (B0 + W)) | (it & ((1 << B0) - 1));
+}
+
+// One middle round over P rows of `buf`, in place: thread g takes items
+// g, g + G, ... of its ciphertext's P * N / 2^W items.
+template <bool kFwd, int LogN, int B0, int W, int P, int C>
+__device__ __forceinline__ void mid_round(uint32_t* buf, int g, int c, const Tables& t,
+                                          uint32_t q) {
+  constexpr int kG = 1 << (LogN - 3);
+  constexpr int kPerRow = 1 << (LogN - W);
+  constexpr int kItems = P * kPerRow / kG;
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    const int item = g + kG * m;
+    const int row = item / kPerRow;
+    int hi;
+    const int base = item_base<B0, W>(item % kPerRow, hi);
+    uint32_t v[1 << W];
+#pragma unroll
+    for (int k = 0; k < (1 << W); ++k) v[k] = buf[word<LogN, C>(row, base + (k << B0), c)];
+    ntt_round<kFwd, LogN, B0, W>(v, hi, t, q);
+#pragma unroll
+    for (int k = 0; k < (1 << W); ++k) buf[word<LogN, C>(row, base + (k << B0), c)] = v[k];
+  }
+}
+
+// The middle rounds (position bits 3 .. LogN-4: one round of LogN - 6
+// bits, or two where that is above 4), each ending in a barrier that every
+// thread of the block reaches.
+template <bool kFwd, int LogN, int P, int C>
+__device__ __forceinline__ void mid_rounds(uint32_t* buf, int g, int c, bool valid,
+                                           const Tables& t, uint32_t q) {
+  constexpr int M = LogN - 6;
+  static_assert(M >= 1 && M <= 8, "LogN out of range");
+  if constexpr (M <= 4) {
+    if (valid) mid_round<kFwd, LogN, 3, M, P, C>(buf, g, c, t, q);
+    __syncthreads();
+  } else {
+    constexpr int W1 = (M + 1) / 2, W2 = M - W1;
+    if constexpr (kFwd) {
+      if (valid) mid_round<kFwd, LogN, 3 + W1, W2, P, C>(buf, g, c, t, q);
+      __syncthreads();
+      if (valid) mid_round<kFwd, LogN, 3, W1, P, C>(buf, g, c, t, q);
+      __syncthreads();
+    } else {
+      if (valid) mid_round<kFwd, LogN, 3, W1, P, C>(buf, g, c, t, q);
+      __syncthreads();
+      if (valid) mid_round<kFwd, LogN, 3 + W1, W2, P, C>(buf, g, c, t, q);
+      __syncthreads();
+    }
+  }
+}
+
+// Threads of a block, and at least two blocks per SM where a block has 256
+// threads or fewer: registers are then capped at 128 a thread where
+// threads x blocks >= 512.
+template <int LogN, int C>
+constexpr int kThreads = C << (LogN - 3);
+template <int LogN, int C>
+constexpr int kMinBlocks = kThreads<LogN, C> <= 256 ? 2 : 1;
+template <int LogN, int C>
+constexpr bool kCapped = kThreads<LogN, C> * kMinBlocks<LogN, C> >= 512;
+
+// g, hidden from the compiler where registers are capped.  The
+// shared-memory addresses of a thread's positions are the same in every
+// step; hoisted out of the scan's step loop they would hold some 80
+// registers and spill.  Each phase of the step derives them from fresh(g),
+// so they are recomputed (one or two integer operations each) and live for
+// one phase only.  Uncapped (C = 1 at N <= 1024), hoisting them pays.
+template <bool kLaunder>
+__device__ __forceinline__ int fresh(int g) {
+  if constexpr (kLaunder) asm volatile("" : "+r"(g));
+  return g;
+}
+
+__device__ __forceinline__ uint32_t lane_word(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// One step for the ciphertext of lane c, position group g0.  acc: its
+// positions 8g..8g+7 of both polys, canonical, in and out.  buf_a [2, N]
+// and buf_b [dG2, N] (C-interleaved) in shared memory; bsk_step the step's
+// [2, dG2, 2, N] key in global memory.  Lanes with valid = false (the tail
+// of the last block) compute and store nothing but reach every barrier.
+template <int LogN, int Dg2, int C>
+__device__ __forceinline__ void step(uint32_t (&acc)[2][8], uint32_t* buf_a, uint32_t* buf_b,
+                                     const Tables& t, const uint32_t* __restrict__ bsk_step,
+                                     uint32_t idx_pos, uint32_t idx_neg, const StepConsts& k,
+                                     int g0, int c, bool valid) {
+  constexpr int N = 1 << LogN, kG = N / 8, kDg = Dg2 / 2;
+  static_assert(Dg2 % 2 == 0 && Dg2 <= 8, "dG2 must be even and at most 8");
+  const uint32_t Q = k.Q;
+
+  // first inverse round (bits 0-2) on the accumulator
+  if (valid) {
+    const int g = fresh<kCapped<LogN, C>>(g0);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = acc[p][j];
+      ntt_round<false, LogN, 0, 3>(v, g, t, Q);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) buf_a[word<LogN, C>(p, 8 * g + j, c)] = v[j];
+    }
   }
   __syncthreads();
-  ntt_inv_stages(work, 2, N, p.logN, inv_w, inv_ws, Q);
+  mid_rounds<false, LogN, 2, C>(buf_a, fresh<kCapped<LogN, C>>(g0), c, valid, t, Q);
 
-  // N^-1 scale + signed digit decomposition, in place: each thread owns
-  // its coefficient positions, reading both polys before writing rows
-  const int32_t half_bg = 1 << (p.g_bits - 1);
-  const int32_t bg_mask = (1 << p.g_bits) - 1;
-  const int32_t q_half = static_cast<int32_t>(Q >> 1);
-  for (int kk = threadIdx.x; kk < N; kk += blockDim.x) {
-    const uint32_t c0 = shoup_mul(work[kk], p.ninv, p.ninv_s, Q);
-    const uint32_t c1 = shoup_mul(work[N + kk], p.ninv, p.ninv_s, Q);
+  // last inverse round (bits L-3..L-1), N^-1, signed digits, first forward
+  // round of each digit poly, on positions g + j N/8
+  if (valid) {
+    const int g = fresh<kCapped<LogN, C>>(g0);
+    int32_t u[2][8];
+    const uint32_t q_half = Q >> 1;
 #pragma unroll
-    for (int poly = 0; poly < 2; ++poly) {
-      int32_t d = static_cast<int32_t>(poly == 0 ? c0 : c1);
-      if (d >= q_half) d -= static_cast<int32_t>(Q);
-      const int32_t u = d + p.offset;
-      for (int t = 1; t <= p.dg; ++t) {
-        const int32_t dig = ((u >> (p.g_bits * t)) & bg_mask) - half_bg;
-        work[(2 * (t - 1) + poly) * N + kk] =
-            dig < 0 ? static_cast<uint32_t>(dig + static_cast<int32_t>(Q))
-                    : static_cast<uint32_t>(dig);
+    for (int p = 0; p < 2; ++p) {
+      uint32_t v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = buf_a[word<LogN, C>(p, g + j * kG, c)];
+      ntt_round<false, LogN, LogN - 3, 3>(v, 0, t, Q);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t x = reduce(shoup_lazy(v[j], k.ninv, k.ninv_s, Q), Q);
+        u[p][j] = static_cast<int32_t>(x) - (x >= q_half ? static_cast<int32_t>(Q) : 0) +
+                  k.offset;
+      }
+    }
+    const int32_t bg_mask = (1 << k.g_bits) - 1;
+    const uint32_t lift = Q - (1u << (k.g_bits - 1));   // digit - Bg/2 + Q, in [0, 2Q)
+#pragma unroll
+    for (int d = 1; d <= kDg; ++d) {
+      const int sh = k.g_bits * d;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = static_cast<uint32_t>((u[p][j] >> sh) & bg_mask) + lift;
+        ntt_round<true, LogN, LogN - 3, 3>(v, 0, t, Q);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) buf_b[word<LogN, C>(2 * (d - 1) + p, g + j * kG, c)] = v[j];
       }
     }
   }
   __syncthreads();
-  ntt_fwd_stages(work, p.dg2, N, p.logN, fwd_w, fwd_ws, Q);
+  mid_rounds<true, LogN, Dg2, C>(buf_b, fresh<kCapped<LogN, C>>(g0), c, valid, t, Q);
+  if (!valid) return;
+  const int g = fresh<kCapped<LogN, C>>(g0);
 
-  // external products, monomials and the accumulate; work is in
-  // bit-reversed EVAL order
-  for (int kk = threadIdx.x; kk < N; kk += blockDim.x) {
-    const int slot = kBitReversed ? brev(kk, p.logN) : kk;   // natural slot of position kk
-    const int wk = kBitReversed ? kk : brev(kk, p.logN);     // its digits in work
-    const uint32_t odd = static_cast<uint32_t>(2 * slot + 1);
-    const uint32_t mono_p = sub_mod(pw[(odd * idx_pos) & two_n_mask], p.r1, Q);
-    const uint32_t mono_n = sub_mod(pw[(odd * idx_neg) & two_n_mask], p.r1, Q);
+  // last forward round (bits 2-0): the digits at positions 8g..8g+7, in
+  // [0, 2Q) (dG2 <= 4) or [0, Q), so that dG2 products sum below 8 Q^2
+  uint32_t D[Dg2][8];
 #pragma unroll
-    for (int col = 0; col < 2; ++col) {
-      uint32_t ep = 0, en = 0;
-      for (int r = 0; r < p.dg2; ++r) {
-        const uint32_t d = work[r * N + wk];
-        const uint32_t kp = __ldg(bsk_step + ((0 * p.dg2 + r) * 2 + col) * N + kk);
-        const uint32_t kn = __ldg(bsk_step + ((1 * p.dg2 + r) * 2 + col) * N + kk);
-        ep = add_mod(ep, mont_mul(d, kp, Q, p.qinv_neg), Q);
-        en = add_mod(en, mont_mul(d, kn, Q, p.qinv_neg), Q);
-      }
-      const uint32_t upd = add_mod(mont_mul(ep, mono_p, Q, p.qinv_neg),
-                                   mont_mul(en, mono_n, Q, p.qinv_neg), Q);
-      acc[col * N + kk] = add_mod(acc[col * N + kk], upd, Q);
+  for (int r = 0; r < Dg2; ++r) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) D[r][j] = buf_b[word<LogN, C>(r, 8 * g + j, c)];
+    ntt_round<true, LogN, 0, 3>(D[r], g, t, Q);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      D[r][j] = reduce(D[r][j], 2 * Q);
+      if constexpr (Dg2 > 4) D[r][j] = reduce(D[r][j], Q);
     }
   }
-  __syncthreads();
+
+  // external product, monomials, accumulate; four positions at a time.
+  // e < 3Q; e0 mp + e1 mn < 6Q^2, its REDC < 2.5Q; acc + that < 3.5Q.
+  const uint32_t mask = 2 * N - 1;
+  const uint32_t* kp = bsk_step + 8 * g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t e[2][2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint4 kv[Dg2][2];
+#pragma unroll
+      for (int r = 0; r < Dg2; ++r) {
+#pragma unroll
+        for (int col = 0; col < 2; ++col) {
+          kv[r][col] = __ldg(reinterpret_cast<const uint4*>(
+              kp + ((s * Dg2 + r) * 2 + col) * N + 4 * h));
+        }
+      }
+#pragma unroll
+      for (int col = 0; col < 2; ++col) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          uint64_t sum = 0;
+#pragma unroll
+          for (int r = 0; r < Dg2; ++r) {
+            sum += static_cast<uint64_t>(D[r][4 * h + jj]) * lane_word(kv[r][col], jj);
+          }
+          e[s][col][jj] = redc(sum, Q, k.qinv_neg);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * h + jj;
+      const uint32_t odd = 2 * (__brev(static_cast<uint32_t>(8 * g + j)) >> (32 - LogN)) + 1;
+      const uint32_t mp = reduce(t.pw[(odd * idx_pos) & mask] - k.r1 + Q, Q);
+      const uint32_t mn = reduce(t.pw[(odd * idx_neg) & mask] - k.r1 + Q, Q);
+#pragma unroll
+      for (int col = 0; col < 2; ++col) {
+        const uint64_t upd = static_cast<uint64_t>(e[0][col][jj]) * mp +
+                             static_cast<uint64_t>(e[1][col][jj]) * mn;
+        const uint32_t a = acc[col][j] + redc(upd, Q, k.qinv_neg);
+        acc[col][j] = reduce(reduce(a, 2 * Q), Q);
+      }
+    }
+  }
 }
 
-// Dynamic shared memory of a blind-rotation block: acc [2N], work [dG2 N],
-// pw [2N].
-inline size_t cggi_smem_bytes(int N, int dg2) {
-  return static_cast<size_t>(2 * N + dg2 * N + 2 * N) * sizeof(uint32_t);
-}
-
+}  // namespace cggi
 }  // namespace fhe

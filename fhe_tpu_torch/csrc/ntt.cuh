@@ -1,12 +1,11 @@
-// Device functions shared by the NTT kernels (ntt.cu) and the blind
-// rotation step (cggi_step.cuh).
+// Device functions of the NTT kernels (ntt.cu).  The blind-rotation step
+// (cggi_step.cuh) has its own register-resident rounds.
 //
 // Residues are uint32 words in [0, q) with q < 2^31 an NTT prime.  The
-// products are the reference's: Shoup (w, w' = floor(w 2^32 / q)) for the
-// twiddles and Montgomery REDC with R = 2^32 and qinv_neg = -q^-1 mod 2^32
-// for key material (fhe_tpu/math/modmath.py shoup_mul / mont_mul); both
-// return canonical residues, so results are byte-identical to the plain
-// PyTorch versions and to fhe_tpu.
+// twiddle products are the reference's Shoup products (w, w' = floor(w
+// 2^32 / q); fhe_tpu/math/modmath.py shoup_mul) and return canonical
+// residues, so results are byte-identical to the plain PyTorch versions and
+// to fhe_tpu.
 //
 // Ordering convention (fhe_tpu/math/ntt.py): EVAL is natural order,
 // eval[k] = a(psi^(2k+1)).  The stages below work in place in shared
@@ -35,16 +34,6 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w, uint32_t w
   const uint32_t qt = __umulhi(a, ws);
   const uint32_t r = a * w - qt * q;  // in [0, 2q)
   return r >= q ? r - q : r;
-}
-
-// a * b * 2^-32 mod q for a, b in [0, q), q odd < 2^31.
-__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b, uint32_t q,
-                                             uint32_t qinv_neg) {
-  const uint32_t lo = a * b;
-  const uint32_t hi = __umulhi(a, b);
-  const uint32_t m = lo * qinv_neg;
-  const uint32_t t = hi + __umulhi(m, q) + (lo != 0u);
-  return t >= q ? t - q : t;
 }
 
 __device__ __forceinline__ int brev(int k, int logN) {
@@ -111,6 +100,7 @@ __device__ __forceinline__ void ntt_inv_stages(uint32_t* s, int npolys, int N, i
 // per stage, at most 512 threads (larger N loop).
 inline int ntt_threads(int N) { return N / 2 < 512 ? N / 2 : 512; }
 
+// log2 of a power of two (host; the NTT and blind-rotation entry points).
 inline int log2_int(int N) {
   int l = 0;
   while ((1 << l) < N) ++l;

@@ -1,10 +1,14 @@
 """Build and load the package's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into ONE
-shared library with a plain C interface, loaded with `ctypes`.  The build
-runs at first use, into `fhe_tpu_torch/_build/<hash>/`, keyed by a hash of
-the sources and flags, so a changed source rebuilds and an unchanged one
-loads the cached library.
+The sources in `csrc/` are compiled by `nvcc` for Hopper (`sm_90a`) into ONE
+shared library with a plain C interface, loaded with `ctypes`.  Each
+translation unit is compiled by its own `nvcc`, all started together:
+`ntt.cu`, `blind_rotate.cu` (the C entry points of the blind rotation) and
+`blind_rotate_inst.cu` once per shape of `csrc/cggi_shapes.h`
+(`-DFHE_INST_LOGN=.. -DFHE_INST_DG2=..`); one more `nvcc` links them.  The
+build runs at first use, into `fhe_tpu_torch/_build/<hash>/`, keyed by a
+hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads the cached library.
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check` raises on a non-zero code, because a refused launch (too many
@@ -19,6 +23,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -30,7 +35,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libfhe_tpu_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,11 +45,9 @@ _U = ctypes.c_uint32
 _SIGNATURES = {
     "fhe_ntt_forward": (_P, _P, _P, _P, _I, _I, _U, _I, _P),
     "fhe_ntt_inverse": (_P, _P, _P, _P, _I, _I, _U, _U, _U, _P),
-    "fhe_blind_rotate": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I,
-                         _U, _U, _U, _U, _U, _U, _U, _P),
-    "fhe_blind_rotate_mega": (_P,) * 10 + (_I,) * 7 + (_U,) * 5 + (_P,),
-    "fhe_rotate_step_br": (_P,) * 10 + (_I,) * 8 + (_U,) * 5 + (_P,),
+    "fhe_cggi_scan": (_P,) * 9 + (_I,) * 8 + (_U,) * 7 + (_P,),
+    "fhe_cggi_steps": (_P,) * 10 + (_I,) * 7 + (_U,) * 7 + (_P,),
+    "fhe_cggi_occupancy": (_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
 }
 
 
@@ -71,7 +74,25 @@ def nvcc() -> str:
 
 
 def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h"))
+
+
+@functools.lru_cache(maxsize=None)
+def shapes() -> tuple[tuple[int, int], ...]:
+    """The (N, dG2) shapes the blind-rotation kernels are instantiated for,
+    from `csrc/cggi_shapes.h` (no build needed)."""
+    text = (CSRC / "cggi_shapes.h").read_text()
+    return tuple((1 << int(log_n), int(dg2))
+                 for log_n, dg2 in re.findall(r"X\((\d+),\s*(\d+)\)", text))
+
+
+def units() -> list[tuple[str, Path, tuple[str, ...]]]:
+    """(object name, source, extra nvcc flags) of every translation unit."""
+    out = [("ntt", CSRC / "ntt.cu", ()), ("blind_rotate", CSRC / "blind_rotate.cu", ())]
+    for N, dg2 in shapes():
+        out.append((f"cggi_n{N}_dg{dg2}", CSRC / "blind_rotate_inst.cu",
+                    (f"-DFHE_INST_LOGN={N.bit_length() - 1}", f"-DFHE_INST_DG2={dg2}")))
+    return out
 
 
 def source_hash() -> str:
@@ -79,7 +100,37 @@ def source_hash() -> str:
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    for name, _, flags in units():
+        h.update(f"{name} {' '.join(flags)}".encode())
     return h.hexdigest()[:16]
+
+
+def _compile(out_dir: Path) -> tuple[Path, str]:
+    """Compiles every unit (one nvcc each, all at once) and links them into
+    a temporary library in out_dir; returns it and the nvcc output."""
+    procs = []
+    for name, src, flags in units():
+        obj = out_dir / f"{name}.o"
+        cmd = [nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)]
+        procs.append((name, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for name, obj, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(name)
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    link = [nvcc(), "-shared", "-o", tmp, *[str(obj) for _, obj, _ in procs]]
+    proc = subprocess.run(link, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    return Path(tmp), log
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,15 +142,7 @@ def library() -> Library:
     log, built = "", False
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        tmp, log = _compile(out_dir)
         os.replace(tmp, lib_path)
         built = True
     cdll = ctypes.CDLL(str(lib_path))

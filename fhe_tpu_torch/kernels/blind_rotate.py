@@ -1,25 +1,59 @@
-"""Launch wrapper for the blind-rotation kernel (`csrc/blind_rotate.cu`).
+"""Launch wrappers for the blind-rotation kernels (`csrc/blind_rotate.cuh`).
 
-Kernel 3 of the port: the whole n-step CGGI blind rotation in one launch,
-replacing `fhe_tpu/tfhe/boot_mxu.py` `_mega_kernel` + `_step_body`.  The
-plain PyTorch version is `tfhe.boot.blind_rotate_plain`;
-`tfhe.boot.blind_rotate` takes it for CPU tensors and this wrapper for
-CUDA tensors.
+Kernels 3 and 4 of the port are one whole-scan kernel, templated on the
+order: the n-step CGGI blind rotation in one launch.  `blind_rotate`
+launches its natural-order instantiation (kernel 3, replacing
+`fhe_tpu/tfhe/boot_mxu.py` `_mega_kernel` + `_step_body`);
+`kernels.blind_rotate_br` launches the bit-reversed one (kernel 4) and the
+one-step kernel (kernel 5).  The plain PyTorch version of this one is
+`tfhe.boot.blind_rotate_plain`; `tfhe.boot.blind_rotate` takes it for CPU
+tensors and this wrapper for CUDA tensors.
 
-The wrapper checks its inputs, launches on the current stream without
-synchronising, and adds one to `LAUNCHES["blind_rotate"]` per launch.
-`require` and `step_constants` serve the bit-reversed kernels too
-(`kernels.blind_rotate_br`): all three run `fhe::cggi_step`.
+Every wrapper checks its inputs before any launch, and raises ValueError
+for a parameter set the kernels are not built for: an (N, dG2) outside
+`shapes()` (the instantiations, `csrc/cggi_shapes.h`) or Q >= 2^30 (the
+kernels' lazy reduction keeps values below 4Q < 2^32).  A block holds
+`choose_c(B, SMs)` ciphertexts.  The wrappers launch on the current stream
+without synchronising and add one to their entry of `LAUNCHES` per kernel
+launch.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from ..math import ntt as nttmod
 from . import _build
+from ._build import shapes  # noqa: F401  (the instantiated (N, dG2), re-exported)
 
 LAUNCHES = {"blind_rotate": 0}
+MAX_Q = 1 << 30
+KINDS = {"natural": 0, "bit-reversed": 1, "step": 2}
+
+
+def check_params(params) -> None:
+    """ValueError unless the kernels are built for params' shape and Q."""
+    shape = (params.N, params.digits_g2)
+    if shape not in shapes():
+        raise ValueError(f"no blind-rotation kernel for (N, dG2) = {shape}; instantiated: "
+                         f"{list(shapes())} (csrc/cggi_shapes.h)")
+    if params.Q >= MAX_Q:
+        raise ValueError(f"Q = {params.Q} >= 2^30: the blind-rotation kernels need 4Q < 2^32")
+
+
+def choose_c(batch: int, sm_count: int) -> int:
+    """Ciphertexts per block: 2 (each key word fetched serves two) once the
+    batch gives every SM two blocks of two, else 1 (more blocks, and batch
+    1 is the latency path)."""
+    return 2 if batch >= 4 * sm_count else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require(t: torch.Tensor, name: str, shape: tuple, device) -> None:
@@ -31,12 +65,14 @@ def require(t: torch.Tensor, name: str, shape: tuple, device) -> None:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def step_constants(params, plan) -> tuple:
-    """(N, dG2, dG - 1, g_bits, offset, Q, qinv_neg, N^-1, its Shoup
-    companion, 2^32 mod Q): the C `fhe::CggiParams`, in its order.  Raises
-    where the kernel's int32 digit arithmetic does not hold."""
+    """(g_bits, offset, Q, qinv_neg, N^-1, its Shoup companion, 2^32 mod Q):
+    the C `StepConsts`, in the entry points' order.  Raises where the
+    kernel's int32 digit arithmetic does not hold."""
     g_bits = params.base_g.bit_length() - 1
     if params.base_g != 1 << g_bits:
         raise ValueError(f"gadget base {params.base_g} is not a power of two")
@@ -44,35 +80,64 @@ def step_constants(params, plan) -> tuple:
     Q = params.Q
     if offset >= 2**31 - Q:
         raise ValueError("digit offset overflows int32 for these parameters")
-    return (params.N, params.digits_g2, params.digits_g - 1, g_bits, offset,
-            Q, plan.qinv_neg, plan.ninv, plan.ninv_s, (1 << 32) % Q)
+    return (g_bits, offset, Q, plan.qinv_neg, plan.ninv, plan.ninv_s, (1 << 32) % Q)
 
 
-def blind_rotate(params, bsk: torch.Tensor, acc: torch.Tensor, a: torch.Tensor,
-                 q_lwe: int, psi_pows_mont: torch.Tensor) -> torch.Tensor:
-    """bsk [steps, 2, dG2, 2, N], acc [B, 2, N], a [B, steps] and
-    psi_pows_mont [2N], all int32 on one CUDA device.  Returns the rotated
-    accumulator [B, 2, N] int32 (natural EVALUATION order, plain form)."""
+def checked(params, bsk_br, acc, a, psi_pows_mont):
+    """Checks every input of a rotation (bsk_br [n, 2, dG2, 2, N], acc
+    [B, 2, N], a [B, n], psi_pows_mont [2N], int32 on one CUDA device);
+    returns (device, C, the five table pointers, the step constants with
+    q and 2N/q): the entry points' arguments around the shape."""
     dev = acc.device
     if dev.type != "cuda":
         raise ValueError(f"blind-rotation kernel needs CUDA tensors, got {dev}")
-    N, dg2 = params.N, params.digits_g2
-    B, steps = acc.shape[0], bsk.shape[0]
+    check_params(params)
+    N, dg2, q = params.N, params.digits_g2, params.q
+    B, n = acc.shape[0], bsk_br.shape[0]
     require(acc, "acc", (B, 2, N), dev)
-    require(bsk, "bsk", (steps, 2, dg2, 2, N), dev)
-    require(a, "a", (B, steps), dev)
+    require(bsk_br, "bsk_br", (n, 2, dg2, 2, N), dev)
+    require(a, "a", (B, n), dev)
     require(psi_pows_mont, "psi_pows_mont", (2 * N,), dev)
-    if (2 * N) % q_lwe:
-        raise ValueError(f"LWE modulus {q_lwe} must divide 2N = {2 * N}")
+    if (2 * N) % q:
+        raise ValueError(f"LWE modulus {q} must divide 2N = {2 * N}")
+    c = choose_c(B, _sm_count(dev))
     plan = nttmod.make_plan(N, params.Q, dev)
-    consts = step_constants(params, plan)
+    tables = (psi_pows_mont.data_ptr(), plan.fwd_w.data_ptr(), plan.fwd_ws.data_ptr(),
+              plan.inv_w.data_ptr(), plan.inv_ws.data_ptr())
+    return dev, c, tables, step_constants(params, plan) + (q, (2 * N) // q)
+
+
+def scan(params, bsk_br, acc, a, psi_pows_mont, natural: bool) -> torch.Tensor:
+    """One launch of the whole-scan kernel in either order; returns the
+    rotated accumulator [B, 2, N] (plain form, the order of acc)."""
+    dev, c, tables, consts = checked(params, bsk_br, acc, a, psi_pows_mont)
     out = torch.empty_like(acc)
-    lib = _build.library().cdll
-    rc = lib.fhe_blind_rotate(
-        acc.data_ptr(), out.data_ptr(), a.data_ptr(), bsk.data_ptr(), psi_pows_mont.data_ptr(),
-        plan.fwd_w.data_ptr(), plan.fwd_ws.data_ptr(), plan.inv_w.data_ptr(),
-        plan.inv_ws.data_ptr(), B, steps, *consts, q_lwe, (2 * N) // q_lwe,
+    rc = _build.library().cdll.fhe_cggi_scan(
+        acc.data_ptr(), out.data_ptr(), a.data_ptr(), bsk_br.data_ptr(), *tables,
+        acc.shape[0], bsk_br.shape[0], params.N, params.digits_g2, c, int(natural), *consts,
         _build.stream_handle(dev))
-    _build.check(rc, "fhe_blind_rotate")
+    _build.check(rc, "fhe_cggi_scan")
+    return out
+
+
+def blind_rotate(params, bsk_br: torch.Tensor, acc: torch.Tensor, a: torch.Tensor,
+                 psi_pows_mont: torch.Tensor) -> torch.Tensor:
+    """Kernel 3.  bsk_br [n, 2, dG2, 2, N] (the key in bit-reversed EVAL
+    order, `rgsw.BootstrapKey.bsk_br`), acc [B, 2, N] (natural EVAL order,
+    plain form), a [B, n] the mask mod q, psi_pows_mont [2N], all int32 on
+    one CUDA device.  Returns the rotated accumulator [B, 2, N] in natural
+    EVAL order."""
+    out = scan(params, bsk_br, acc, a, psi_pows_mont, natural=True)
     LAUNCHES["blind_rotate"] += 1
     return out
+
+
+def occupancy(params, c: int, kind: str) -> int:
+    """Resident blocks per SM of a kernel ("natural" or "bit-reversed"
+    scan, or "step") at params' shape with c ciphertexts per block."""
+    check_params(params)
+    blocks = ctypes.c_int(0)
+    rc = _build.library().cdll.fhe_cggi_occupancy(params.N, params.digits_g2, c, KINDS[kind],
+                                                   ctypes.byref(blocks))
+    _build.check(rc, "fhe_cggi_occupancy")
+    return blocks.value

@@ -10,7 +10,10 @@ Makes STD128 keys from the seed on cuda:0, then prints:
    parts of switch_ct_to_qn; and the peak device memory of one gate;
 3. one torch.profiler trace of the gate at --batch: the host wall time,
    the device busy time (the union of the CUDA kernel and memcpy/memset
-   intervals), their ratio (busy share), and the kernels by device time.
+   intervals), their ratio (busy share), and the kernels by device time;
+4. the blind-rotation kernels alone at batch 1 and 4096 (CUDA events,
+   median of 3): the scan in both orders and kernel 5's n launches, with
+   the ciphertexts per block (C) that the wrappers choose.
 
 Every line carries the card's name and power limit.
 """
@@ -74,7 +77,7 @@ def stages(ctx, sk, key, rng, batch: int, card: str):
     tv = boot.make_gate_test_vector(p, comb.b, consts)
     acc1 = nttmod.ntt_forward(plan, tv)
     acc = torch.stack([torch.zeros_like(acc1), acc1], dim=1).contiguous()
-    rot = boot.blind_rotate(p, key.bsk, acc, comb.a)
+    rot = boot.blind_rotate(p, key, acc, comb.a)
     offset = p.Q // 8 + 1
     ext = boot.extract_lwe(p, rot, offset)
     ms1 = lwe.mod_switch(ext, p.q_ks)
@@ -83,7 +86,7 @@ def stages(ctx, sk, key, rng, batch: int, card: str):
         "lwe add": lambda: lwe.add(ct1, ct2),
         "test vector": lambda: boot.make_gate_test_vector(p, comb.b, consts),
         "forward NTT (kernel)": lambda: nttmod.ntt_forward(plan, tv),
-        "blind rotation (kernel)": lambda: boot.blind_rotate(p, key.bsk, acc, comb.a),
+        "blind rotation (kernel)": lambda: boot.blind_rotate(p, key, acc, comb.a),
         "extract_lwe (flip + inverse NTT kernel)": lambda: boot.extract_lwe(p, rot, offset),
         "mod switch Q -> q_ks": lambda: lwe.mod_switch(ext, p.q_ks),
         "key switch": lambda: lwe.key_switch(p, key.ksk, ms1),
@@ -145,6 +148,23 @@ def trace(ctx, key, ct1, ct2, batch: int, card: str) -> None:
         print(f"[trace]   {us / 1e3:9.3f} ms  x{count:<3d} {name[:110]}")
 
 
+def rotation(ctx, key, rng, card: str) -> None:
+    from .kernels import blind_rotate as kbr
+    from .kernels import blind_rotate_br as kbr_br
+    p = ctx.params
+    pows = boot._psi_powers_mont_words(p.N, p.Q, ctx.device)
+    kernels = (("natural scan", kbr.blind_rotate), ("bit-reversed scan", kbr_br.blind_rotate_mega),
+               (f"kernel 5 x {p.n}", kbr_br.blind_rotate_fused))
+    sms = torch.cuda.get_device_properties(ctx.device).multi_processor_count
+    for batch in (1, 4096):
+        acc = torch.from_numpy(rng.integers(0, p.Q, size=(batch, 2, p.N))).to(ctx.device,
+                                                                              torch.int32)
+        a = torch.from_numpy(rng.integers(0, p.q, size=(batch, p.n))).to(ctx.device, torch.int32)
+        times = [(name, time_ms(lambda: fn(p, key.bsk_br, acc, a, pows))) for name, fn in kernels]
+        print(f"[rotation] batch {batch}, C = {kbr.choose_c(batch, sms)}: "
+              + ", ".join(f"{name} {ms:.3f} ms" for name, ms in times) + f"  ({card})")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=20261016)
@@ -161,6 +181,7 @@ def main() -> None:
     sweep(ctx, sk, key, rng, card)
     ct1, ct2 = stages(ctx, sk, key, rng, args.batch, card)
     trace(ctx, key, ct1, ct2, args.batch, card)
+    rotation(ctx, key, rng, card)
 
 
 if __name__ == "__main__":

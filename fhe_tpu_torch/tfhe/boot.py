@@ -108,13 +108,14 @@ def blind_rotate_plain(params: TfheParams, bsk: torch.Tensor, acc: torch.Tensor,
     return acc.to(torch.int32)
 
 
-def blind_rotate(params: TfheParams, bsk: torch.Tensor, acc: torch.Tensor,
+def blind_rotate(params: TfheParams, key: rgsw.BootstrapKey, acc: torch.Tensor,
                  a: torch.Tensor) -> torch.Tensor:
-    """CGGI accumulation: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (raises on anything else, never falls back)."""
+    """CGGI accumulation: the plain version on key.bsk for CPU tensors, the
+    CUDA kernel on the key's cached bit-reversed copy (`key.bsk_br`) for
+    CUDA tensors (raises on anything else, never falls back)."""
     if acc.device.type == "cpu":
-        return blind_rotate_plain(params, bsk, acc, a)
-    return kbr.blind_rotate(params, bsk, acc, a, params.q,
+        return blind_rotate_plain(params, key.bsk, acc, a)
+    return kbr.blind_rotate(params, key.bsk_br, acc, a,
                             _psi_powers_mont_words(params.N, params.Q, acc.device))
 
 
@@ -148,14 +149,14 @@ def make_gate_test_vector(params: TfheParams, b: torch.Tensor, consts) -> torch.
     return out.reshape(b.shape[0], N)
 
 
-def bootstrap_core(params: TfheParams, bsk: torch.Tensor, test_vec: torch.Tensor,
+def bootstrap_core(params: TfheParams, key: rgsw.BootstrapKey, test_vec: torch.Tensor,
                    a: torch.Tensor) -> torch.Tensor:
     """Blind-rotate a COEFFICIENT test vector by the mask `a`; returns the
     accumulator [B, 2, N] in EVALUATION format."""
     plan = nttmod.make_plan(params.N, params.Q, test_vec.device)
     acc1 = nttmod.ntt_forward(plan, test_vec)
     acc = torch.stack([torch.zeros_like(acc1), acc1], dim=1).contiguous()
-    return blind_rotate(params, bsk, acc, a)
+    return blind_rotate(params, key, acc, a)
 
 
 # ntt_impl -> accumulator.  fhe_tpu's NTT names compute the same transform
@@ -182,7 +183,7 @@ def run_accumulator(params: TfheParams, key: rgsw.BootstrapKey, test_vec: torch.
     natural-order whole scan (kernel 3)."""
     impl = accumulator(ntt_impl)
     if impl == "mega2":
-        return bootstrap_core(params, key.bsk, test_vec, a)
+        return bootstrap_core(params, key, test_vec, a)
     from . import boot_pallas
     core = boot_pallas.bootstrap_core_mega if impl == "mega" else boot_pallas.bootstrap_core_fused
     return core(params, key, test_vec, a)

@@ -4,9 +4,9 @@ fhe_tpu/tfhe/boot_pallas.py, `ntt_impl="mega"` and `"fused"`).
 The accumulator and the bootstrap key stay in bit-reversed EVAL order
 across the n steps: the inverse butterflies consume that order and the
 forward butterflies produce it, so no permutation runs inside a step.
-The test vector enters through the forward NTT with `out_br`, the key
-through `bsk_to_br`, and one gather returns the result to natural order
-before extraction.
+The test vector enters through the forward NTT with `out_br`, the key as
+its bit-reversed copy (`rgsw.BootstrapKey.bsk_br`, made once per key), and
+one gather returns the result to natural order before extraction.
 
 `blind_rotate_mega` (the whole scan, one launch) and `rotate_step_br` /
 `blind_rotate_fused` (one launch per step) take their plain versions for
@@ -37,15 +37,7 @@ def bit_reverse(params: TfheParams, x: torch.Tensor) -> torch.Tensor:
 
 def bsk_to_br(params: TfheParams, bsk: torch.Tensor) -> torch.Tensor:
     """The bootstrap key's evaluation axis in bit-reversed order."""
-    return bit_reverse(params, bsk)
-
-
-def rotation_indices(params: TfheParams, a: torch.Tensor):
-    """(idx_pos, idx_neg) int32, the shape of `a`: idx_pos = ((q - a) mod q)
-    * 2N/q mod 2N, idx_neg = (2N - idx_pos) mod 2N (boot_pallas.py:312)."""
-    idx_pos, _ = boot._rotation_indices(params, a, params.q)
-    idx_neg = (2 * params.N - idx_pos) & (2 * params.N - 1)
-    return idx_pos.to(torch.int32), idx_neg.to(torch.int32)
+    return rgsw.bsk_to_br(bsk)
 
 
 def _psi_powers(params: TfheParams, device) -> torch.Tensor:
@@ -67,9 +59,7 @@ def blind_rotate_mega(params: TfheParams, bsk_br: torch.Tensor, acc_br: torch.Te
     for CPU tensors, kernel 4 for CUDA tensors."""
     if acc_br.device.type == "cpu":
         return blind_rotate_mega_plain(params, bsk_br, acc_br, a)
-    idx_pos, idx_neg = rotation_indices(params, a)
-    return kbr.blind_rotate_mega(params, bsk_br, acc_br, idx_pos, idx_neg,
-                                 _psi_powers(params, acc_br.device))
+    return kbr.blind_rotate_mega(params, bsk_br, acc_br, a, _psi_powers(params, acc_br.device))
 
 
 def rotate_step_br_plain(params: TfheParams, bsk_br_i: torch.Tensor, acc_br: torch.Tensor,
@@ -84,9 +74,7 @@ def rotate_step_br(params: TfheParams, bsk_br_i: torch.Tensor, acc_br: torch.Ten
     tensors, one launch of kernel 5 for CUDA tensors."""
     if acc_br.device.type == "cpu":
         return rotate_step_br_plain(params, bsk_br_i, acc_br, a_i)
-    idx_pos, idx_neg = rotation_indices(params, a_i)
-    return kbr.rotate_step_br(params, bsk_br_i, acc_br, idx_pos, idx_neg,
-                              _psi_powers(params, acc_br.device))
+    return kbr.rotate_step_br(params, bsk_br_i, acc_br, a_i, _psi_powers(params, acc_br.device))
 
 
 def blind_rotate_fused(params: TfheParams, bsk_br: torch.Tensor, acc_br: torch.Tensor,
@@ -98,9 +86,7 @@ def blind_rotate_fused(params: TfheParams, bsk_br: torch.Tensor, acc_br: torch.T
         for i in range(bsk_br.shape[0]):
             acc_br = rotate_step_br_plain(params, bsk_br[i], acc_br, a[:, i])
         return acc_br
-    idx_pos, idx_neg = rotation_indices(params, a)
-    return kbr.blind_rotate_fused(params, bsk_br, acc_br, idx_pos, idx_neg,
-                                  _psi_powers(params, acc_br.device))
+    return kbr.blind_rotate_fused(params, bsk_br, acc_br, a, _psi_powers(params, acc_br.device))
 
 
 def _bootstrap_core_br(rotate, params: TfheParams, key: rgsw.BootstrapKey,
@@ -108,7 +94,7 @@ def _bootstrap_core_br(rotate, params: TfheParams, key: rgsw.BootstrapKey,
     plan = nttmod.make_plan(params.N, params.Q, test_vec.device)
     acc1 = nttmod.ntt_forward(plan, test_vec, out_br=True)
     acc_br = torch.stack([torch.zeros_like(acc1), acc1], dim=1)
-    rot = rotate(params, bsk_to_br(params, key.bsk), acc_br, a)
+    rot = rotate(params, key.bsk_br, acc_br, a)
     return bit_reverse(params, rot)
 
 

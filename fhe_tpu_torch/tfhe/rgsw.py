@@ -12,6 +12,7 @@ with duals would not.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -31,12 +32,28 @@ class BootstrapKey:
          axis 2: gadget row r (digit (r>>1)+1 of poly r&1);
          axis 3: RLWE column (a, b).
     ksk: LWE switching key N->n.
+    bsk_br (made at first use, then cached on the key): bsk with its
+         evaluation axis in bit-reversed order, the blind-rotation kernels'
+         key on every accumulator; one copy per key and device, since
+         `to` makes a new key.
     """
     bsk: torch.Tensor
     ksk: lwe.LweSwitchingKey
 
     def to(self, device) -> "BootstrapKey":
         return BootstrapKey(bsk=self.bsk.to(device), ksk=self.ksk.to(device))
+
+    @functools.cached_property
+    def bsk_br(self) -> torch.Tensor:
+        return bsk_to_br(self.bsk)
+
+
+def bsk_to_br(bsk: torch.Tensor) -> torch.Tensor:
+    """A bootstrap key [..., N] with its evaluation axis in bit-reversed
+    order (the permutation is an involution)."""
+    N = bsk.shape[-1]
+    perm = torch.from_numpy(nttmod.bit_reverse_perm(N).astype(np.int64)).to(bsk.device)
+    return torch.index_select(bsk, -1, perm).contiguous()
 
 
 def gadget_powers(params: TfheParams) -> np.ndarray:

@@ -48,7 +48,7 @@ def test_blind_rotate_matches_fhe_tpu(rng):
     plan = jntt.make_plan(jp.N, jp.Q)
     rotate = jax.jit(lambda k, c, m: jboot.blind_rotate(jp, k, c, m, "butterfly", None, plan))
     want = rotate(jnp.asarray(bsk), jnp.asarray(acc), jnp.asarray(a))
-    got = tboot.blind_rotate(tp, _i32(bsk), _i32(acc), _i32(a))
+    got = tboot.blind_rotate(tp, trgsw.BootstrapKey(bsk=_i32(bsk), ksk=None), _i32(acc), _i32(a))
     assert got.dtype == torch.int32
     _eq(want, got)
 
@@ -95,5 +95,5 @@ def test_kernel_wrapper_rejects_cpu_tensors(rng):
     tp = t_make_params("TOY")
     acc, bsk, a = _random_rotation(tp, rng, B=2, steps=1)
     with pytest.raises(ValueError):
-        kbr.blind_rotate(tp, _i32(bsk), _i32(acc), _i32(a), tp.q,
+        kbr.blind_rotate(tp, _i32(bsk), _i32(acc), _i32(a),
                          _i32(tboot.psi_powers_mont(tp.N, tp.Q)))

@@ -27,7 +27,7 @@ from fhe_tpu.tfhe import lwe as jlwe
 from fhe_tpu.tfhe import make_params as j_make_params
 from fhe_tpu.tfhe import rgsw as jrgsw
 from fhe_tpu_torch.math import ntt as tntt
-from fhe_tpu_torch.tfhe import BinFheContext, boot
+from fhe_tpu_torch.tfhe import BinFheContext, boot, rgsw
 from fhe_tpu_torch.tfhe import boot_pallas as tbp
 from fhe_tpu_torch.tfhe import make_params as t_make_params
 
@@ -93,17 +93,20 @@ def test_rotate_step_br_is_one_step_of_the_natural_rotation(rng):
     tp = t_make_params("TOY")
     acc, bsk, a = (_i32(x) for x in _random_rotation(tp, rng, steps=1))
     got = tbp.rotate_step_br(tp, tbp.bsk_to_br(tp, bsk)[0], tbp.bit_reverse(tp, acc), a[:, 0])
-    want = boot.blind_rotate(tp, bsk, acc, a)
+    want = boot.blind_rotate(tp, rgsw.BootstrapKey(bsk=bsk, ksk=None), acc, a)
     torch.testing.assert_close(tbp.bit_reverse(tp, got), want, rtol=0, atol=0)
 
 
 def test_rotation_indices():
+    """idx_pos = ((q - a) mod q) * 2N/q mod 2N (fhe_tpu boot_pallas.py:312),
+    as the plain rotation computes it and the kernels do per step
+    (csrc/blind_rotate.cuh `indices`, with idx_neg = 2N - idx_pos mod 2N)."""
     tp = t_make_params("TOY")
     a = torch.tensor([[0, 1, 5, tp.q - 1]], dtype=torch.int32)
-    idx_pos, idx_neg = tbp.rotation_indices(tp, a)
+    idx_pos, zero_low_bits = boot._rotation_indices(tp, a, tp.q)
     m_by = 2 * tp.N // tp.q
     assert idx_pos.tolist() == [[0, (tp.q - 1) * m_by, (tp.q - 5) * m_by, m_by]]
-    assert ((idx_pos + idx_neg) % (2 * tp.N)).tolist() == [[0, 0, 0, 0]]
+    assert zero_low_bits == m_by.bit_length() - 1
 
 
 @pytest.fixture(scope="module")

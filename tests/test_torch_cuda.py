@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from fhe_tpu_torch import BinFheContext
+from fhe_tpu_torch.kernels import blind_rotate as kbr
+from fhe_tpu_torch.kernels import blind_rotate_br as kbr_br
 from fhe_tpu_torch.kernels import launch_counts
 from fhe_tpu_torch.math import ntt
-from fhe_tpu_torch.tfhe import boot, boot_pallas, make_params
+from fhe_tpu_torch.tfhe import boot, boot_pallas, make_params, rgsw
 
 pytestmark = pytest.mark.cuda
 
@@ -67,7 +69,8 @@ def test_blind_rotate_kernel_matches_plain(name, steps, cuda, gen):
     acc = _residues(gen, p.Q, (8, 2, p.N), cuda)
     bsk = _residues(gen, p.Q, (steps, 2, p.digits_g2, 2, p.N), cuda)
     a = _residues(gen, p.q, (8, steps), cuda)
-    _same(boot.blind_rotate(p, bsk, acc, a), boot.blind_rotate_plain(p, bsk, acc, a))
+    _same(boot.blind_rotate(p, rgsw.BootstrapKey(bsk=bsk, ksk=None), acc, a),
+          boot.blind_rotate_plain(p, bsk, acc, a))
 
 
 @pytest.mark.parametrize("name,steps", [("TOY", 64), ("STD128", 16)])
@@ -83,6 +86,70 @@ def test_blind_rotate_br_kernels_match_plain(name, steps, cuda, gen):
     _same(boot_pallas.blind_rotate_fused(p, bsk, acc, a), want)
     _same(boot_pallas.rotate_step_br(p, bsk[0], acc, a[:, 0]),
           boot_pallas.rotate_step_br_plain(p, bsk[0], acc, a[:, 0]))
+
+
+# one GINX parameter set of each instantiated (N, dG2) (csrc/cggi_shapes.h)
+SHAPE_PARAMS = {(512, 4): "TOY", (1024, 4): "STD128", (1024, 6): "STD128_3",
+                (2048, 4): "STD256", (2048, 6): "STD256Q", (2048, 8): "STD256Q_3"}
+
+
+def _rotation_inputs(gen, p, B, steps, dev):
+    return (_residues(gen, p.Q, (B, 2, p.N), dev),
+            _residues(gen, p.Q, (steps, 2, p.digits_g2, 2, p.N), dev),
+            _residues(gen, p.q, (B, steps), dev))
+
+
+def _check_all_orders(p, acc, bsk, a):
+    """The scan in both orders and kernel 5's n launches, byte-equal to
+    their plain versions."""
+    pows = boot._psi_powers_mont_words(p.N, p.Q, acc.device)
+    bsk_br = boot_pallas.bsk_to_br(p, bsk)
+    _same(kbr.blind_rotate(p, bsk_br, acc, a, pows), boot.blind_rotate_plain(p, bsk, acc, a))
+    want = boot_pallas.blind_rotate_mega_plain(p, bsk_br, acc, a)
+    _same(kbr_br.blind_rotate_mega(p, bsk_br, acc, a, pows), want)
+    _same(kbr_br.blind_rotate_fused(p, bsk_br, acc, a, pows), want)
+
+
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPE_PARAMS))
+@pytest.mark.parametrize("B", [1, 3, 8, "4 SMs + 1"])
+def test_rotation_kernels_every_shape(shape, B, cuda, gen):
+    """Every instantiation, at B = 1, 3 and 8 (one ciphertext per block)
+    and at 4 x SMs + 1, the least batch the wrappers run two to a block
+    (one masked lane in the last block); random keys, 4 steps."""
+    p = make_params(SHAPE_PARAMS[shape])
+    if B == "4 SMs + 1":
+        B = 4 * _sm_count(cuda) + 1
+        assert kbr.choose_c(B, _sm_count(cuda)) == 2
+    else:
+        assert kbr.choose_c(B, _sm_count(cuda)) == 1
+    _check_all_orders(p, *_rotation_inputs(gen, p, B, 4, cuda))
+
+
+@pytest.mark.parametrize("name", ["TOY", "STD128"])
+def test_rotation_kernels_odd_batch(name, cuda, gen):
+    """4097 ciphertexts: the wrappers choose two per block, so the last
+    block has one masked lane."""
+    p = make_params(name)
+    acc, bsk, a = _rotation_inputs(gen, p, 4097, 4, cuda)
+    assert kbr.choose_c(4097, _sm_count(cuda)) == 2
+    _check_all_orders(p, acc, bsk, a)
+
+
+def test_rotation_kernels_reject_unsupported_shape(cuda, gen):
+    """No instantiation for TOY_RADIX (N = 8192): ValueError before any
+    launch, on every wrapper."""
+    p = make_params("TOY_RADIX")
+    acc, bsk, a = _rotation_inputs(gen, p, 1, 1, cuda)
+    pows = boot._psi_powers_mont_words(p.N, p.Q, cuda)
+    before = launch_counts()
+    for fn in (kbr.blind_rotate, kbr_br.blind_rotate_mega, kbr_br.blind_rotate_fused):
+        with pytest.raises(ValueError, match="no blind-rotation kernel"):
+            fn(p, bsk, acc, a, pows)
+    assert launch_counts() == before
 
 
 KERNEL_OF = {None: "blind_rotate", "mega": "blind_rotate_mega", "fused": "rotate_step_br"}

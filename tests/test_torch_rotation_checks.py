@@ -1,0 +1,88 @@
+"""The blind-rotation wrappers' checks on the CPU, without a kernel: the
+instantiated shapes against the parameter sets, the shape and Q
+validation, the choice of ciphertexts per block, and the bit-reversed key
+made once per BootstrapKey.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from fhe_tpu_torch.kernels import blind_rotate as kbr
+from fhe_tpu_torch.tfhe import boot, make_params, rgsw
+from fhe_tpu_torch.tfhe.params import PARAM_SETS
+
+
+def _single_word_sets():
+    return [make_params(name) for name in PARAM_SETS if not make_params(name).moduli_rns]
+
+
+def test_instantiated_shapes_are_the_parameter_sets():
+    """Every (N, dG2) of the single-word sets that fits a block's shared
+    memory (N <= 2048; TOY_RADIX's N = 8192 does not) has its kernels."""
+    want = {(p.N, p.digits_g2) for p in _single_word_sets() if p.N <= 2048}
+    assert set(kbr.shapes()) == want
+    assert len(kbr.shapes()) == len(want)
+
+
+@pytest.mark.parametrize("name", ["TOY", "STD128", "STD128_3", "STD256", "STD256Q",
+                                  "STD256Q_3"])
+def test_check_params_accepts_every_instantiation(name):
+    kbr.check_params(make_params(name))
+
+
+def test_check_params_rejects_unsupported_shape():
+    with pytest.raises(ValueError, match=r"\(N, dG2\) = \(8192, 10\)"):
+        kbr.check_params(make_params("TOY_RADIX"))
+    p = make_params("STD128")
+    with pytest.raises(ValueError, match=r"\(N, dG2\) = \(1024, 2\)"):
+        kbr.check_params(dataclasses.replace(p, digits_g=2))
+
+
+def test_check_params_rejects_modulus_from_2_to_30():
+    p = make_params("STD256_LMKCDEY")
+    assert p.Q < 1 << 30
+    kbr.check_params(p)
+    with pytest.raises(ValueError, match="2\\^30"):
+        kbr.check_params(dataclasses.replace(p, Q=(1 << 30) + 1))
+
+
+@pytest.mark.parametrize("batch,sms,c", [(1, 132, 1), (8, 132, 1), (527, 132, 1),
+                                         (528, 132, 2), (4096, 132, 2), (4097, 132, 2),
+                                         (4096, 2048, 1)])
+def test_choose_c(batch, sms, c):
+    assert kbr.choose_c(batch, sms) == c
+
+
+def test_wrappers_reject_cpu_tensors_before_checking_shape():
+    p = make_params("TOY_RADIX")
+    acc = torch.zeros(1, 2, p.N, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kbr.blind_rotate(p, torch.zeros(1, 2, p.digits_g2, 2, p.N, dtype=torch.int32), acc,
+                         torch.zeros(1, 1, dtype=torch.int32),
+                         torch.zeros(2 * p.N, dtype=torch.int32))
+
+
+def test_bit_reversed_key_made_once_per_key(monkeypatch):
+    """Two "mega" rotations and one "fused" on one key build the
+    bit-reversed key once, and give the bytes of the default accumulator,
+    which does not read it on the CPU.  TOY widths, a random key of 8
+    steps, batch 2."""
+    built = []
+    make = rgsw.bsk_to_br
+    monkeypatch.setattr(rgsw, "bsk_to_br", lambda bsk: built.append(1) or make(bsk))
+    p = make_params("TOY")
+    gen = np.random.default_rng(7)
+    bsk = torch.from_numpy(gen.integers(0, p.Q, size=(8, 2, p.digits_g2, 2, p.N)))
+    key = rgsw.BootstrapKey(bsk=bsk.to(torch.int32), ksk=None)
+    tv = torch.from_numpy(gen.integers(0, p.Q, size=(2, p.N))).to(torch.int32)
+    a = torch.from_numpy(gen.integers(0, p.q, size=(2, 8))).to(torch.int32)
+    want = boot.run_accumulator(p, key, tv, a, None)
+    assert not built
+    for impl in ("mega", "mega", "fused"):
+        torch.testing.assert_close(boot.run_accumulator(p, key, tv, a, impl), want, rtol=0,
+                                   atol=0)
+    assert len(built) == 1
+    assert key.bsk_br is key.bsk_br
