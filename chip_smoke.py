@@ -9,9 +9,14 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
 
 1. device: card name and power limit, torch, nvcc, triton;
 2. build: compiles every kernel from fhe_tpu_torch/csrc/ (nvcc, sm_90a);
-3. kernels against their plain PyTorch versions on the card, byte-equal
-   (the blind rotations at batch 1, 8 and an odd 4097, which the wrappers
-   run two ciphertexts to a block with one masked lane);
+3. kernels against their plain PyTorch versions on the card, byte-equal:
+   the NTT kernels at every N of csrc/ntt_shapes.h with 1, 3 and
+   P x SMs + 1 rows (P rows a block: the last block has masked rows), a
+   prime below 2^30 (lazy butterflies) and one in (2^30, 2^31) (canonical),
+   natural and bit-reversed output and the round trip, and N = 2^14
+   refused with a ValueError; the blind rotations at batch 1, 8 and an odd
+   4097, which the wrappers run two ciphertexts to a block with one masked
+   lane;
 4. main path, once per accumulator: STD128 keygen (once), AND and XOR on
    4096 independent random bit pairs, one single-gate AND, CMUX at batch
    4096 and the batch API's ASYNC AND, decrypted against the truth tables,
@@ -21,10 +26,14 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
 5. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
+   the NTT kernels, and their plain versions, with a cold L2 (each call
+   after writing a 256 MB buffer, so that it reads its input from device
+   memory: `profile_ntt.time_cold_ms`), also at the single gate's shapes;
    the blind-rotation kernels' resident blocks per SM at batch 4096.
 
-The build lines give each blind-rotation kernel's registers and spills
-(`-Xptxas -v`); a spill at STD128's shape fails the run.
+The build lines give each kernel's registers and spills (`-Xptxas -v`); a
+spill in any NTT kernel, or in a blind-rotation kernel at STD128's shape,
+fails the run.
 
 It exits non-zero, and prints no result, when there is no CUDA device or
 any phase fails.  Its last three lines are a JSON object of the kernels,
@@ -50,8 +59,8 @@ SEED = 20261016
 BATCH = 4096
 IMPLS = (None, "mega", "fused")
 KERNELS = {  # name -> (source, TPU kernel it replaces)
-    "ntt_forward": ("fhe_tpu_torch/csrc/ntt.cu", "fhe_tpu/math/ntt_pallas.py:64"),
-    "ntt_inverse": ("fhe_tpu_torch/csrc/ntt.cu", "fhe_tpu/math/ntt_pallas.py:79"),
+    "ntt_forward": ("fhe_tpu_torch/csrc/ntt.cuh", "fhe_tpu/math/ntt_pallas.py:64"),
+    "ntt_inverse": ("fhe_tpu_torch/csrc/ntt.cuh", "fhe_tpu/math/ntt_pallas.py:79"),
     "blind_rotate": ("fhe_tpu_torch/csrc/blind_rotate.cuh", "fhe_tpu/tfhe/boot_mxu.py:230"),
     "blind_rotate_mega": ("fhe_tpu_torch/csrc/blind_rotate.cuh",
                           "fhe_tpu/tfhe/boot_pallas.py:235"),
@@ -96,8 +105,8 @@ def device_report(card: str) -> None:
 
 def kernel_reports(log: str) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill-store bytes) per compiled kernel in the
-    ptxas report; blind-rotation kernels named by their template arguments
-    (log2 N, dG2, C[, natural])."""
+    ptxas report, named by their template arguments: blind rotations
+    (log2 N, dG2, C[, natural]), NTTs (log2 N, lazy[, out_br])."""
     out, name, spill = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -106,7 +115,8 @@ def kernel_reports(log: str) -> list[tuple[str, int, int]]:
             args = ", ".join(re.findall(r"L[ib](\d+)E", mangled))
             kind = ("scan_kernel" if "scan_kernel" in mangled else
                     "step_kernel" if "step_kernel" in mangled else
-                    "ntt_forward_kernel" if "forward" in mangled else "ntt_inverse_kernel")
+                    "ntt_forward_kernel" if "forward_kernel" in mangled else
+                    "ntt_inverse_kernel")
             name, spill = f"{kind}<{args}>" if args else kind, 0
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -126,10 +136,10 @@ def build() -> None:
     reports = kernel_reports(lib.log)
     for name, regs, spill in reports:
         print(f"[build] {name}: {regs} registers, {spill} bytes spill stores")
-    spilled = [name for name, _, spill in reports if name.startswith(("scan_kernel<10, 4,",
-               "step_kernel<10, 4,")) and spill]
+    spilled = [name for name, _, spill in reports if name.startswith(
+        ("scan_kernel<10, 4,", "step_kernel<10, 4,", "ntt_")) and spill]
     if lib.built and spilled:
-        fail(f"kernels at STD128's shape spill: {spilled}")
+        fail(f"NTT kernels or kernels at STD128's shape spill: {spilled}")
 
 
 class Errors:
@@ -138,12 +148,14 @@ class Errors:
     def __init__(self):
         self.max = {name: 0 for name in KERNELS}
 
-    def compare(self, name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    def compare(self, name: str, got: torch.Tensor, want: torch.Tensor, what: str,
+                show: bool = True) -> None:
         if got.shape != want.shape or got.dtype != want.dtype:
             fail(f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
         self.max[name] = max(self.max[name], err)
-        print(f"[kernels] {what}: max |kernel - plain| = {err}")
+        if show:
+            print(f"[kernels] {what}: max |kernel - plain| = {err}")
         if err != 0:
             fail(f"{what}: kernel disagrees with its plain version")
 
@@ -152,22 +164,52 @@ def _residues(rng, high, shape, dev):
     return torch.from_numpy(rng.integers(0, high, size=shape)).to(dev, torch.int32)
 
 
-def check_kernels(dev, errors: Errors) -> None:
-    from fhe_tpu_torch.math import ntt
-    from fhe_tpu_torch.tfhe import boot, boot_pallas, make_params, rgsw
+def check_ntt_kernels(dev, errors: Errors) -> None:
+    """Kernels 1 and 2 at every instantiated N, rows 1, 3 and P x SMs + 1,
+    q on both sides of 2^30; N = 2^14 refused before any launch."""
+    from fhe_tpu_torch import kernels
+    from fhe_tpu_torch.kernels import ntt as kntt
+    from fhe_tpu_torch.math import ntt, primes
     rng = np.random.default_rng(SEED + 1)
-    q = 134215681
-    for rows, N in [(64, 1024), (4024, 1024), (64, 512)]:
-        plan = ntt.make_plan(N, q, dev)
-        x = _residues(rng, q, (rows, N), dev)
-        f = ntt.ntt_forward(plan, x)
-        errors.compare("ntt_forward", f, ntt.forward_butterfly(plan, x), f"ntt_forward [{rows}, {N}]")
-        errors.compare("ntt_forward", ntt.ntt_forward(plan, x, out_br=True),
-                       ntt.forward_butterfly(plan, x, out_br=True),
-                       f"ntt_forward out_br [{rows}, {N}]")
-        i = ntt.ntt_inverse(plan, f)
-        errors.compare("ntt_inverse", i, ntt.inverse_butterfly(plan, f), f"ntt_inverse [{rows}, {N}]")
-        errors.compare("ntt_inverse", i, x, f"ntt_inverse(ntt_forward) [{rows}, {N}] round trip")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for N in kntt.sizes():
+        rows_all = (1, 3, kntt.rows_per_block(N) * sms + 1)
+        for q in (primes.last_prime(27, 2 * N), primes.last_prime(31, 2 * N)):
+            plan = ntt.make_plan(N, q, dev)
+            for rows in rows_all:
+                at = f"[{rows}, {N}] q={q}"
+                x = _residues(rng, q, (rows, N), dev)
+                f = ntt.ntt_forward(plan, x)
+                errors.compare("ntt_forward", f, ntt.forward_butterfly(plan, x),
+                               f"ntt_forward {at}", show=False)
+                errors.compare("ntt_forward", ntt.ntt_forward(plan, x, out_br=True),
+                               ntt.forward_butterfly(plan, x, out_br=True),
+                               f"ntt_forward out_br {at}", show=False)
+                i = ntt.ntt_inverse(plan, f)
+                errors.compare("ntt_inverse", i, ntt.inverse_butterfly(plan, f),
+                               f"ntt_inverse {at}", show=False)
+                errors.compare("ntt_inverse", i, x, f"ntt round trip {at}", show=False)
+            arith = "lazy" if q < kntt.LAZY_Q else "canonical"
+            print(f"[kernels] ntt N={N} q={q} ({arith}), rows {rows_all}: forward, forward "
+                  f"out_br, inverse, round trip byte-equal to the plain versions")
+    N = 1 << 14
+    plan = ntt.make_plan(N, primes.last_prime(27, 2 * N), dev)
+    before = kernels.launch_counts()
+    for what, fn in (("forward", ntt.ntt_forward), ("inverse", ntt.ntt_inverse)):
+        try:
+            fn(plan, torch.zeros(1, N, dtype=torch.int32, device=dev))
+        except ValueError as e:
+            print(f"[kernels] ntt {what} N={N}: ValueError: {e}")
+        else:
+            fail(f"ntt {what} at N = {N} was not refused")
+    if kernels.launch_counts() != before:
+        fail(f"ntt at N = {N} launched a kernel")
+
+
+def check_kernels(dev, errors: Errors) -> None:
+    from fhe_tpu_torch.tfhe import boot, boot_pallas, make_params, rgsw
+    check_ntt_kernels(dev, errors)
+    rng = np.random.default_rng(SEED + 1)
     for name, steps, B in [("STD128", 16, 8), ("STD128", 16, 1), ("STD128", 16, 4097),
                            ("TOY", 64, 8)]:
         p = make_params(name)
@@ -320,6 +362,42 @@ def bound(nbytes: int, muls: int, int_peak: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def time_ntt(dev, plan, x_f, x_i, errors: Errors, int_peak: float, card: str) -> dict:
+    """Kernels 1 and 2 against their plain versions with a cold L2, at the
+    main path's shapes (the batch's test vectors and extract_lwe's rows;
+    the forward in both orders) and the single gate's; returns the
+    main-path natural-order times for the kernels line."""
+    from fhe_tpu_torch.math import ntt
+    from fhe_tpu_torch.profile_ntt import FLUSH_WORDS, time_cold_ms
+    flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=dev)
+    butterflies = plan.N // 2 * plan.logN
+    twiddles = _nbytes(plan.fwd_w, plan.fwd_ws)
+    fwd = lambda x: (lambda: ntt.ntt_forward(plan, x), lambda: ntt.forward_butterfly(plan, x))
+    fwd_br = lambda x: (lambda: ntt.ntt_forward(plan, x, out_br=True),
+                        lambda: ntt.forward_butterfly(plan, x, out_br=True))
+    inv = lambda x: (lambda: ntt.ntt_inverse(plan, x), lambda: ntt.inverse_butterfly(plan, x))
+    cases = [  # (kernel, order, input, (kernel call, plain call), multiplies a row, main)
+        ("ntt_forward", "natural", x_f, fwd(x_f), 3 * butterflies, True),
+        ("ntt_forward", "out_br", x_f, fwd_br(x_f), 3 * butterflies, False),
+        ("ntt_inverse", "natural", x_i, inv(x_i), 3 * (butterflies + plan.N), True),
+        ("ntt_forward", "natural", x_f[:1], fwd(x_f[:1]), 3 * butterflies, False),
+        ("ntt_forward", "out_br", x_f[:1], fwd_br(x_f[:1]), 3 * butterflies, False),
+        ("ntt_inverse", "natural", x_i[:2], inv(x_i[:2]), 3 * (butterflies + plan.N), False),
+    ]
+    result = {}
+    for name, order, x, (kern, plain), muls, main in cases:
+        shape = f"[{x.shape[0]}, {plan.N}] {order}"
+        errors.compare(name, kern(), plain(), f"{name} {shape}")
+        k_ms = time_cold_ms(kern, 21, flush)
+        p_ms = time_cold_ms(plain, 5, flush)
+        b_ms, b_by = bound(_nbytes(x, x) + twiddles, muls * x.shape[0], int_peak)
+        print(f"[time] {name} {shape}, cold L2: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by}, kernel at {b_ms / k_ms:.3f} of its bound  ({card})")
+        if main:
+            result[name] = (k_ms, p_ms, b_ms, b_by)
+    return result
+
+
 def timings(dev, ctx, key, cts, errors: Errors, card: str) -> dict:
     from fhe_tpu_torch.math import ntt
     from fhe_tpu_torch.tfhe import boot, boot_pallas
@@ -359,10 +437,6 @@ def timings(dev, ctx, key, cts, errors: Errors, card: str) -> dict:
     bsk_br = key.bsk_br
     pows = boot._psi_powers_mont_words(p.N, p.Q, dev)
     twiddles = _nbytes(plan.fwd_w, plan.fwd_ws)
-    butterflies = p.N // 2 * (p.N.bit_length() - 1)
-    errors.compare("ntt_forward", ntt.ntt_forward(plan, x_f, out_br=True),
-                   ntt.forward_butterfly(plan, x_f, out_br=True),
-                   f"ntt_forward out_br [{BATCH}, {p.N}] (main-path shape)")
     rot_bytes = _nbytes(acc, acc, key.bsk, a, pows) + 2 * twiddles
     step_bytes = _nbytes(acc, acc, key.bsk[0], a[:, 0], pows) + 2 * twiddles
     step_muls = step_multiplies(p) * BATCH
@@ -370,12 +444,6 @@ def timings(dev, ctx, key, cts, errors: Errors, card: str) -> dict:
     # name -> (shape, kernel, plain, timed run of the kernel and its launches,
     #          reps of that run, plain reps, bytes, multiplies)
     cases = {
-        "ntt_forward": (f"[{BATCH}, {p.N}]", lambda: ntt.ntt_forward(plan, x_f),
-                        lambda: ntt.forward_butterfly(plan, x_f), None, 1, 5, 5,
-                        _nbytes(x_f, x_f) + twiddles, BATCH * 3 * butterflies),
-        "ntt_inverse": (f"[{2 * BATCH}, {p.N}]", lambda: ntt.ntt_inverse(plan, x_i),
-                        lambda: ntt.inverse_butterfly(plan, x_i), None, 1, 5, 5,
-                        _nbytes(x_i, x_i) + twiddles, 2 * BATCH * 3 * (butterflies + p.N)),
         "blind_rotate": (f"[{BATCH}, 2, {p.N}] x {p.n} steps, STD128 key",
                          lambda: boot.blind_rotate(p, key, acc, a),
                          lambda: boot.blind_rotate_plain(p, key.bsk, acc, a), None, 1, 3, 1,
@@ -391,7 +459,7 @@ def timings(dev, ctx, key, cts, errors: Errors, card: str) -> dict:
                            lambda: boot_pallas.rotate_step_br_plain(p, bsk_br[0], acc, a[:, 0]),
                            fused, p.n, 3, 3, step_bytes, step_muls),
     }
-    result, mega_plain = {}, None
+    result, mega_plain = time_ntt(dev, plan, x_f, x_i, errors, int_peak, card), None
     for name, (shape, kern, plain, run, launches, k_reps, p_reps, nbytes, muls) in cases.items():
         got = kern()
         if p_reps == 1:

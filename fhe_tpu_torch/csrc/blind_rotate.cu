@@ -8,7 +8,7 @@
 
 #include "cggi_launch.h"
 #include "cggi_shapes.h"
-#include "ntt.cuh"
+#include "ntt_launch.h"
 
 namespace {
 

@@ -21,10 +21,11 @@
 // - Compile-time shapes.  LogN, dG2 and C are template parameters: every
 //   stage, digit and external-product loop unrolls and every index is a
 //   constant or one add from a per-thread base.
-// - Register-resident rounds.  A ciphertext has G = N/8 threads.  Each NTT
-//   is three or four rounds; a round runs up to 4 butterfly stages on 8 or
-//   16 values in a thread's registers, and rounds exchange through shared
-//   memory.  Rounds cover position bits {0,1,2} | 3..L-4 | {L-3,L-2,L-1}
+// - Register-resident rounds (ntt_rounds.cuh, shared with the NTT
+//   kernels).  A ciphertext has G = N/8 threads.  Each NTT is three or four
+//   rounds; a round runs up to 4 butterfly stages on 8 or 16 values in a
+//   thread's registers, and rounds exchange through shared memory.  Rounds
+//   cover position bits {0,1,2} | 3..L-4 | {L-3,L-2,L-1}
 //   (the inverse low to high, the forward high to low), so a step has 4
 //   barriers at N <= 1024 and 6 at N = 2048, against 23 before.
 // - The accumulator in registers.  Thread g owns positions 8g..8g+7 of
@@ -58,151 +59,16 @@
 #include <cstdint>
 
 #include "cggi_launch.h"
+#include "ntt_rounds.cuh"
 
 namespace fhe {
 namespace cggi {
-
-// The NTT plan's tables and the monomial table: in shared memory (the whole
-// scan, loaded once per block) or in global memory (the single step, read
-// through L1).
-struct Tables {
-  const uint32_t* fwd_w;
-  const uint32_t* fwd_ws;
-  const uint32_t* inv_w;
-  const uint32_t* inv_ws;
-  const uint32_t* pw;
-};
-
-// x in [0, 2m) -> [0, m); also [0, 2^32) -> x or x - m, whichever is smaller.
-__device__ __forceinline__ uint32_t reduce(uint32_t x, uint32_t m) { return min(x, x - m); }
-
-// a * w mod q in [0, 2q) for any 32-bit a; ws = floor(w 2^32 / q), w < q.
-__device__ __forceinline__ uint32_t shoup_lazy(uint32_t a, uint32_t w, uint32_t ws,
-                                               uint32_t q) {
-  return a * w - __umulhi(a, ws) * q;
-}
 
 // t * 2^-32 mod q in [0, t / 2^32 + q) (Montgomery REDC of a 64-bit value).
 __device__ __forceinline__ uint32_t redc(uint64_t t, uint32_t q, uint32_t qinv_neg) {
   const uint32_t lo = static_cast<uint32_t>(t);
   const uint32_t m = lo * qinv_neg;
   return static_cast<uint32_t>(t >> 32) + __umulhi(m, q) + (lo != 0u);
-}
-
-// W butterfly stages on v[k], the values at positions
-// (hi << (B0 + W)) + (k << B0) + lo (k < 2^W, lo < 2^B0): the stages on
-// position bits B0..B0+W-1, inverse (Gentleman-Sande) low bit first, forward
-// (Cooley-Tukey) high bit first.  The butterfly on bit b of the pair at x
-// takes entry (N + x) >> (b + 1) of its table, in both directions
-// (fhe_tpu/math/ntt.py forward_butterfly / inverse_butterfly).  Inverse:
-// [0, 2Q) in and out; forward: [0, 4Q) in and out.
-template <bool kFwd, int LogN, int B0, int W>
-__device__ __forceinline__ void ntt_round(uint32_t (&v)[1 << W], int hi, const Tables& t,
-                                          uint32_t q) {
-  const uint32_t two_q = 2 * q;
-  const uint32_t* tw = kFwd ? t.fwd_w : t.inv_w;
-  const uint32_t* tws = kFwd ? t.fwd_ws : t.inv_ws;
-#pragma unroll
-  for (int s = 0; s < W; ++s) {
-    const int u = kFwd ? W - 1 - s : s;
-    const int tb = ((1 << (LogN - B0 - W)) + hi) << (W - 1 - u);
-#pragma unroll
-    for (int k = 0; k < (1 << W); ++k) {
-      if (k & (1 << u)) continue;
-      const int ti = tb + (k >> (u + 1));
-      const uint32_t w = tw[ti], ws = tws[ti];
-      uint32_t& x = v[k];
-      uint32_t& y = v[k | (1 << u)];
-      if (kFwd) {
-        const uint32_t a = reduce(x, two_q);
-        const uint32_t t = shoup_lazy(y, w, ws, q);
-        x = a + t;
-        y = a - t + two_q;
-      } else {
-        const uint32_t sum = x + y;
-        const uint32_t diff = x - y + two_q;
-        x = reduce(sum, two_q);
-        y = shoup_lazy(diff, w, ws, q);
-      }
-    }
-  }
-}
-
-// Word of position x of row `row`, ciphertext lane c, in an exchange buffer
-// of N-word rows with C ciphertexts interleaved word by word.  The swizzle
-// XORs bank bits 0-2 with position bits kBeta..kBeta+2 and bank bits
-// 3..kBeta-1 with position bits 7.., kBeta = log2(32 / C) bank bits per
-// ciphertext: then the lanes of every round below hit distinct banks.
-template <int LogN, int C>
-__device__ __forceinline__ int word(int row, int x, int c) {
-  constexpr int kBeta = C == 1 ? 5 : 4;
-  const int sx = x ^ ((x >> kBeta) & 7) ^ (((x >> 7) & ((1 << (kBeta - 3)) - 1)) << 3);
-  return ((row << LogN) + sx) * C + c;
-}
-
-// Item `it` of a middle round over bits [B0, B0 + W): returns its first
-// position and sets hi, its position bits above the round.  The lanes of a
-// warp take consecutive items; where B0 = 3 the item bits 3-4 (which vary
-// across a warp) go to position bits 7-8, the bits the swizzle spreads.
-template <int B0, int W>
-__device__ __forceinline__ int item_base(int it, int& hi) {
-  hi = it >> B0;
-  if constexpr (B0 == 3 && B0 + W < 7) {
-    constexpr int p0 = 7 - (B0 + W);
-    const int lane = hi & 3, rest = hi >> 2;
-    hi = (rest & ((1 << p0) - 1)) | (lane << p0) | ((rest >> p0) << (p0 + 2));
-  }
-  return (hi << (B0 + W)) | (it & ((1 << B0) - 1));
-}
-
-// One middle round over P rows of `buf`, in place: thread g takes items
-// g, g + G, ... of its ciphertext's P * N / 2^W items.
-template <bool kFwd, int LogN, int B0, int W, int P, int C>
-__device__ __forceinline__ void mid_round(uint32_t* buf, int g, int c, const Tables& t,
-                                          uint32_t q) {
-  constexpr int kG = 1 << (LogN - 3);
-  constexpr int kPerRow = 1 << (LogN - W);
-  constexpr int kItems = P * kPerRow / kG;
-#pragma unroll
-  for (int m = 0; m < kItems; ++m) {
-    const int item = g + kG * m;
-    const int row = item / kPerRow;
-    int hi;
-    const int base = item_base<B0, W>(item % kPerRow, hi);
-    uint32_t v[1 << W];
-#pragma unroll
-    for (int k = 0; k < (1 << W); ++k) v[k] = buf[word<LogN, C>(row, base + (k << B0), c)];
-    ntt_round<kFwd, LogN, B0, W>(v, hi, t, q);
-#pragma unroll
-    for (int k = 0; k < (1 << W); ++k) buf[word<LogN, C>(row, base + (k << B0), c)] = v[k];
-  }
-}
-
-// The middle rounds (position bits 3 .. LogN-4: one round of LogN - 6
-// bits, or two where that is above 4), each ending in a barrier that every
-// thread of the block reaches.
-template <bool kFwd, int LogN, int P, int C>
-__device__ __forceinline__ void mid_rounds(uint32_t* buf, int g, int c, bool valid,
-                                           const Tables& t, uint32_t q) {
-  constexpr int M = LogN - 6;
-  static_assert(M >= 1 && M <= 8, "LogN out of range");
-  if constexpr (M <= 4) {
-    if (valid) mid_round<kFwd, LogN, 3, M, P, C>(buf, g, c, t, q);
-    __syncthreads();
-  } else {
-    constexpr int W1 = (M + 1) / 2, W2 = M - W1;
-    if constexpr (kFwd) {
-      if (valid) mid_round<kFwd, LogN, 3 + W1, W2, P, C>(buf, g, c, t, q);
-      __syncthreads();
-      if (valid) mid_round<kFwd, LogN, 3, W1, P, C>(buf, g, c, t, q);
-      __syncthreads();
-    } else {
-      if (valid) mid_round<kFwd, LogN, 3, W1, P, C>(buf, g, c, t, q);
-      __syncthreads();
-      if (valid) mid_round<kFwd, LogN, 3 + W1, W2, P, C>(buf, g, c, t, q);
-      __syncthreads();
-    }
-  }
 }
 
 // Threads of a block, and at least two blocks per SM where a block has 256

@@ -1,81 +1,74 @@
-// Batched negacyclic NTT / inverse NTT, natural order in and out (the
-// forward NTT can also leave its native bit-reversed order: `out_br`).
-//
-// Replaces: fhe_tpu/math/ntt_pallas.py `_fwd_kernel` (forward_pallas) and
-// `_inv_kernel` (inverse_pallas), the TPU kernels that keep a [tile, N]
-// block in VMEM for all log N stages.
-//
-// What bounds it on the H100: the stages are 32-bit modular multiplies
-// (two __umulhi-class IMADs and a conditional subtract per butterfly), so
-// integer multiply throughput and the __syncthreads() between stages, not
-// memory: each row is read and written once.
-//
-// What this first version does about that: nothing yet.  One block per
-// row holds the [N] row in shared memory for all stages (the role VMEM
-// played), with the bit-reversal folded into the store (forward) or the
-// load (inverse) and N^-1 (Shoup) folded into the inverse's store; with
-// `out_br` the forward stores the stages' bit-reversed order as it is
-// (ntt_pallas.forward_pallas(out_br=True), the input of kernels 4 and 5).
-// wgmma and TMA do not apply to 32-bit modular arithmetic; register-
-// resident stages and several rows per block are for a later change.
+// C entry points of the NTT kernels (ntt.cuh): each dispatches on N over
+// the shapes of ntt_shapes.h and on the arithmetic (lazy where q < 2^30,
+// chosen by the caller) to the instantiation compiled from ntt_inst.cu.
+// An N with no instantiation returns cudaErrorInvalidValue without
+// launching; the Python wrappers (kernels/ntt.py) raise before they get
+// here.  Also the library's error strings.
 #include <cuda_runtime.h>
 
-#include "ntt.cuh"
+#include "ntt_launch.h"
+#include "ntt_shapes.h"
 
 namespace {
 
-__global__ void ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-                                   const uint32_t* __restrict__ w,
-                                   const uint32_t* __restrict__ ws, int N, int logN,
-                                   uint32_t q, int out_br) {
-  extern __shared__ uint32_t s[];
-  const size_t base = static_cast<size_t>(blockIdx.x) * N;
-  for (int k = threadIdx.x; k < N; k += blockDim.x) s[k] = x[base + k];
-  __syncthreads();
-  fhe::ntt_fwd_stages(s, 1, N, logN, w, ws, q);
-  for (int k = threadIdx.x; k < N; k += blockDim.x)
-    y[base + k] = s[out_br ? k : fhe::brev(k, logN)];
-}
+using fhe::ntt::Args;
 
-__global__ void ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
-                                   const uint32_t* __restrict__ w,
-                                   const uint32_t* __restrict__ ws, int N, int logN,
-                                   uint32_t q, uint32_t ninv, uint32_t ninv_s) {
-  extern __shared__ uint32_t s[];
-  const size_t base = static_cast<size_t>(blockIdx.x) * N;
-  for (int k = threadIdx.x; k < N; k += blockDim.x) s[fhe::brev(k, logN)] = x[base + k];
-  __syncthreads();
-  fhe::ntt_inv_stages(s, 1, N, logN, w, ws, q);
-  for (int k = threadIdx.x; k < N; k += blockDim.x)
-    y[base + k] = fhe::shoup_mul(s[k], ninv, ninv_s, q);
+Args make_args(const void* x, void* y, const void* w, const void* ws, int rows, uint32_t q,
+               uint32_t ninv, uint32_t ninv_s, uint32_t w1_ninv, uint32_t w1_ninv_s) {
+  return Args{static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
+              static_cast<const uint32_t*>(w), static_cast<const uint32_t*>(ws), rows, q,
+              ninv, ninv_s, w1_ninv, w1_ninv_s};
 }
 
 }  // namespace
 
 extern "C" {
 
+// [rows, N] COEFFICIENT -> EVALUATION, natural order or (out_br) the
+// stages' bit-reversed order; w/ws the plan's fwd_w/fwd_ws.
 int fhe_ntt_forward(const void* x, void* y, const void* w, const void* ws, int rows, int N,
-                    uint32_t q, int out_br, void* stream) {
-  if (rows > 0) {
-    ntt_forward_kernel<<<rows, fhe::ntt_threads(N), N * sizeof(uint32_t),
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
-        static_cast<const uint32_t*>(w), static_cast<const uint32_t*>(ws), N,
-        fhe::log2_int(N), q, out_br);
+                    uint32_t q, int out_br, int lazy, void* stream) {
+  const Args args = make_args(x, y, w, ws, rows, q, 0, 0, 0, 0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FHE_FWD_CASE(L)                                                             \
+  if (N == (1 << L)) {                                                              \
+    if (lazy) {                                                                     \
+      return out_br ? fhe::ntt::launch_forward<L, true, true>(args, s)              \
+                    : fhe::ntt::launch_forward<L, true, false>(args, s);            \
+    }                                                                               \
+    return out_br ? fhe::ntt::launch_forward<L, false, true>(args, s)               \
+                  : fhe::ntt::launch_forward<L, false, false>(args, s);             \
   }
-  return static_cast<int>(cudaGetLastError());
+  FHE_NTT_SHAPES(FHE_FWD_CASE)
+#undef FHE_FWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// [rows, N] natural-order EVALUATION -> COEFFICIENT with the N^-1 scale;
+// w/ws the plan's inv_w/inv_ws; ninv = N^-1 and w1_ninv = inv_w[1] N^-1 mod
+// q, each with its Shoup companion.
 int fhe_ntt_inverse(const void* x, void* y, const void* w, const void* ws, int rows, int N,
-                    uint32_t q, uint32_t ninv, uint32_t ninv_s, void* stream) {
-  if (rows > 0) {
-    ntt_inverse_kernel<<<rows, fhe::ntt_threads(N), N * sizeof(uint32_t),
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
-        static_cast<const uint32_t*>(w), static_cast<const uint32_t*>(ws), N,
-        fhe::log2_int(N), q, ninv, ninv_s);
+                    uint32_t q, uint32_t ninv, uint32_t ninv_s, uint32_t w1_ninv,
+                    uint32_t w1_ninv_s, int lazy, void* stream) {
+  const Args args = make_args(x, y, w, ws, rows, q, ninv, ninv_s, w1_ninv, w1_ninv_s);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FHE_INV_CASE(L)                                                             \
+  if (N == (1 << L)) {                                                              \
+    return lazy ? fhe::ntt::launch_inverse<L, true>(args, s)                        \
+                : fhe::ntt::launch_inverse<L, false>(args, s);                      \
   }
-  return static_cast<int>(cudaGetLastError());
+  FHE_NTT_SHAPES(FHE_INV_CASE)
+#undef FHE_INV_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Rows a block of the N-point kernels holds (0 for an N with no kernel).
+int fhe_ntt_rows_per_block(int N) {
+#define FHE_ROWS_CASE(L) \
+  if (N == (1 << L)) return fhe::ntt::kRows<L>;
+  FHE_NTT_SHAPES(FHE_ROWS_CASE)
+#undef FHE_ROWS_CASE
+  return 0;
 }
 
 const char* fhe_error_string(int code) {

@@ -1,110 +1,175 @@
-// Device functions of the NTT kernels (ntt.cu).  The blind-rotation step
-// (cggi_step.cuh) has its own register-resident rounds.
+// The batched negacyclic NTT kernels (kernels 1 and 2), one compile-time N
+// each, on the rounds of ntt_rounds.cuh; ntt_inst.cu instantiates them once
+// per N of ntt_shapes.h.
 //
-// Residues are uint32 words in [0, q) with q < 2^31 an NTT prime.  The
-// twiddle products are the reference's Shoup products (w, w' = floor(w
-// 2^32 / q); fhe_tpu/math/modmath.py shoup_mul) and return canonical
-// residues, so results are byte-identical to the plain PyTorch versions and
-// to fhe_tpu.
+// Replaces: fhe_tpu/math/ntt_pallas.py `_fwd_kernel` (forward_pallas,
+// natural order or `out_br`) and `_inv_kernel` (inverse_pallas), the TPU
+// kernels that keep a [tile, N] block in VMEM for all log N stages.
 //
-// Ordering convention (fhe_tpu/math/ntt.py): EVAL is natural order,
-// eval[k] = a(psi^(2k+1)).  The stages below work in place in shared
-// memory: the forward (Cooley-Tukey) stages take natural COEFF order and
-// leave bit-reversed EVAL order; the inverse (Gentleman-Sande) stages take
-// bit-reversed EVAL order and leave natural COEFF order without the N^-1
-// scale.  Callers fix the order on load or store with `brev`.
+// What bounds them on the H100: bytes and integer issue, about equally.
+// Each row is read and written once: 10 us at [4096, 1024] (33.5 MB at
+// 3.35 TB/s).  At N = 1024 a thread issues about 680 instructions
+// (profile_ntt's SASS count of the lazy forward), 275 IMAD on the
+// multiply-add pipe and 280 adds, minima, shifts and logic on the integer
+// pipe, each pipe 16 lanes a clock per SM quarter: 9-11 us of issue for
+// [4096, 1024] on 132 SMs.  So the design spends as few instructions as it
+// can and keeps the loads and stores under the arithmetic:
+// - G = N/8 threads a row, P rows a block (about 256 threads where
+//   N <= 2048) and several blocks a SM, so one block's loads overlap
+//   another's rounds; rows past the end are masked lanes that load zeros,
+//   store nothing and reach every barrier.
+// - Register-resident rounds: an edge round straight from global memory
+//   into registers, the middle rounds through the swizzled exchange buffer
+//   (ntt_word: one XOR an access), an edge round from registers to global
+//   memory: 2 barriers at N <= 1024, 3 at N = 2048 and 8192 (was
+//   log N + 1), and no bank conflict in any exchange.
+// - The bit reversal folded into the thread map, with no extra pass: on the
+//   natural-order edge (the forward's last round, the inverse's first)
+//   thread g works on positions 8 brev(g) + k, whose slots are
+//   brev3(k) N/8 + g, so a warp's global accesses are consecutive words for
+//   each k.  With out_br the forward stores positions 8g..8g+7 as they
+//   stand, two 16-byte stores.
+// - Lazy Harvey butterflies where q < 2^30 (4q < 2^32), canonical ones for
+//   2^30 <= q < 2^31 (the wrapper picks from the plan's q); outputs are
+//   canonical either way, byte-equal to the plain versions.  The N^-1
+//   scale is folded into the inverse's last stage: (x + y) N^-1 and
+//   (x - y) w_1 N^-1, one Shoup product each.
+// - A round's twiddles are read once per item, through L1, a stage's run
+//   of consecutive entries in as few vector loads as it takes.
 #pragma once
 
 #include <cstdint>
 
+#include <cuda_runtime.h>
+
+#include "ntt_launch.h"
+#include "ntt_rounds.cuh"
+
 namespace fhe {
+namespace ntt {
 
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t q) {
-  const uint32_t t = a + b;
-  return t >= q ? t - q : t;
+template <int LogN>
+constexpr int kThreads = kRows<LogN> * kG<LogN>;
+
+// Four blocks of 256 threads a SM (one of 1024 at N = 8192): registers
+// capped at 64 a thread.  (Three blocks at about 70 registers ran slower.)
+template <int LogN>
+constexpr int kMinBlocks = kThreads<LogN> >= 1024 ? 1 : 1024 / kThreads<LogN>;
+
+// x reversed over its low Bits bits.
+template <int Bits>
+__device__ __forceinline__ int brev_bits(int x) {
+  return static_cast<int>(__brev(static_cast<uint32_t>(x)) >> (32 - Bits));
 }
 
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t q) {
-  return a >= b ? a - b : a + (q - b);
-}
+template <int LogN, bool kLazy, bool kOutBr>
+__global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
+forward_kernel(const Args args) {
+  constexpr int N = 1 << LogN, G = kG<LogN>, P = kRows<LogN>;
+  using R = NttRounds<LogN, kLazy, kThreads<LogN>>;
+  __shared__ uint32_t buf[P * N];
+  const int r = threadIdx.x / G, g = threadIdx.x % G;
+  const size_t row = static_cast<size_t>(blockIdx.x) * P + r;
+  const bool valid = row < static_cast<size_t>(args.rows);
+  const uint32_t q = args.q;
+  const Tables t{args.w, args.ws, args.w, args.ws, nullptr};
 
-// a * w mod q for any uint32 a, with ws = floor(w * 2^32 / q), w < q < 2^31.
-__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w, uint32_t ws,
-                                              uint32_t q) {
-  const uint32_t qt = __umulhi(a, ws);
-  const uint32_t r = a * w - qt * q;  // in [0, 2q)
-  return r >= q ? r - q : r;
-}
+  // first round (bits L-1..L-3) on positions g + j N/8, from global memory
+  {
+    const uint32_t* src = args.x + row * N + g;
+    uint32_t v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = valid ? src[j * G] : 0u;
+    ntt_round<true, LogN, LogN - 3, 3, kLazy, true>(v, 0, t, q);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) buf[R::at(r, g, j * G, 0)] = v[j];
+  }
+  __syncthreads();
+  mid_rounds<true, LogN, P, 1, R>(buf, threadIdx.x, 0, true, t, q);
+  if (!valid) return;
 
-__device__ __forceinline__ int brev(int k, int logN) {
-  return static_cast<int>(__brev(static_cast<unsigned>(k)) >> (32 - logN));
-}
-
-// Forward stages over `npolys` polynomials stored back to back (stride N)
-// in shared memory.  w/ws: the plan's fwd_w/fwd_ws tables, psi^br(j).
-// Stage s pairs (i*2t + j, i*2t + j + t), t = N >> (s+1), with twiddle
-// w[2^s + i]: fhe_tpu/math/ntt.py forward_butterfly.  Ends synchronised.
-__device__ __forceinline__ void ntt_fwd_stages(uint32_t* s, int npolys, int N, int logN,
-                                               const uint32_t* __restrict__ w,
-                                               const uint32_t* __restrict__ ws,
-                                               uint32_t q) {
-  const int half_log = logN - 1;
-  const int total = npolys << half_log;
-  for (int st = 0; st < logN; ++st) {
-    const int tlog = logN - st - 1;
-    const int m = 1 << st;
-    for (int k = threadIdx.x; k < total; k += blockDim.x) {
-      const int p = k >> half_log;
-      const int kk = k & ((1 << half_log) - 1);
-      const int i = kk >> tlog;
-      const int j = kk & ((1 << tlog) - 1);
-      const int i0 = p * N + (i << (tlog + 1)) + j;
-      const int i1 = i0 + (1 << tlog);
-      const uint32_t u = s[i0];
-      const uint32_t v = shoup_mul(s[i1], __ldg(w + m + i), __ldg(ws + m + i), q);
-      s[i0] = add_mod(u, v, q);
-      s[i1] = sub_mod(u, v, q);
-    }
-    __syncthreads();
+  // last round (bits 2-0) on positions 8h..8h+7, to global memory
+  const int h = kOutBr ? g : brev_bits<LogN - 3>(g);
+  uint32_t v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = buf[R::at(r, 8 * h, k, 0)];
+  ntt_round<true, LogN, 0, 3, kLazy, true>(v, h, t, q);
+  if constexpr (kLazy) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = reduce(reduce(v[k], 2 * q), q);
+  }
+  uint32_t* dst = args.y + row * N;
+  if constexpr (kOutBr) {
+    *reinterpret_cast<uint4*>(dst + 8 * g) = make_uint4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<uint4*>(dst + 8 * g + 4) = make_uint4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dst[brev_bits<3>(k) * G + g] = v[k];
   }
 }
 
-// Inverse stages (no N^-1 scale).  w/ws: the plan's inv_w/inv_ws tables.
-// Stage s pairs (i*2t + j, i*2t + j + t), t = 2^s, with twiddle
-// w[(N >> (s+1)) + i]: fhe_tpu/math/ntt.py inverse_butterfly.
-__device__ __forceinline__ void ntt_inv_stages(uint32_t* s, int npolys, int N, int logN,
-                                               const uint32_t* __restrict__ w,
-                                               const uint32_t* __restrict__ ws,
-                                               uint32_t q) {
-  const int half_log = logN - 1;
-  const int total = npolys << half_log;
-  for (int st = 0; st < logN; ++st) {
-    const int h = N >> (st + 1);
-    for (int k = threadIdx.x; k < total; k += blockDim.x) {
-      const int p = k >> half_log;
-      const int kk = k & ((1 << half_log) - 1);
-      const int i = kk >> st;
-      const int j = kk & ((1 << st) - 1);
-      const int i0 = p * N + (i << (st + 1)) + j;
-      const int i1 = i0 + (1 << st);
-      const uint32_t u = s[i0];
-      const uint32_t v = s[i1];
-      s[i0] = add_mod(u, v, q);
-      s[i1] = shoup_mul(sub_mod(u, v, q), __ldg(w + h + i), __ldg(ws + h + i), q);
-    }
-    __syncthreads();
+template <int LogN, bool kLazy>
+__global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
+inverse_kernel(const Args args) {
+  constexpr int N = 1 << LogN, G = kG<LogN>, P = kRows<LogN>;
+  using R = NttRounds<LogN, kLazy, kThreads<LogN>>;
+  __shared__ uint32_t buf[P * N];
+  const int r = threadIdx.x / G, g = threadIdx.x % G;
+  const size_t row = static_cast<size_t>(blockIdx.x) * P + r;
+  const bool valid = row < static_cast<size_t>(args.rows);
+  const uint32_t q = args.q;
+  const Tables t{args.w, args.ws, args.w, args.ws, nullptr};
+
+  // first round (bits 0-2) on positions 8h..8h+7, h = brev(g): position
+  // 8h + k holds slot brev3(k) N/8 + g of the natural-order input
+  {
+    const int h = brev_bits<LogN - 3>(g);
+    const uint32_t* src = args.x + row * N + g;
+    uint32_t v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = valid ? src[brev_bits<3>(k) * G] : 0u;
+    ntt_round<false, LogN, 0, 3, kLazy, true>(v, h, t, q);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) buf[R::at(r, 8 * h, k, 0)] = v[k];
+  }
+  __syncthreads();
+  mid_rounds<false, LogN, P, 1, R>(buf, threadIdx.x, 0, true, t, q);
+  if (!valid) return;
+
+  // last round on positions g + j N/8, to global memory: the stages on bits
+  // L-3 and L-2 (lo and hi: bit L-1 clear and set), then the stage on bit
+  // L-1 with N^-1 folded in, (x + y) N^-1 and (x - y) w_1 N^-1
+  uint32_t lo[4], hi[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo[j] = buf[R::at(r, g, j * G, 0)];
+    hi[j] = buf[R::at(r, g, (j + 4) * G, 0)];
+  }
+  ntt_round<false, LogN, LogN - 3, 2, kLazy, true>(lo, 0, t, q);
+  ntt_round<false, LogN, LogN - 3, 2, kLazy, true>(hi, 1, t, q);
+  const uint32_t lift = kLazy ? 2 * q : q;     // x - y + lift > 0
+  uint32_t* dst = args.y + row * N + g;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    dst[j * G] = reduce(shoup_lazy(lo[j] + hi[j], args.ninv, args.ninv_s, q), q);
+    dst[(j + 4) * G] =
+        reduce(shoup_lazy(lo[j] - hi[j] + lift, args.w1_ninv, args.w1_ninv_s, q), q);
   }
 }
 
-// Threads per block for an N-point transform: one butterfly per thread
-// per stage, at most 512 threads (larger N loop).
-inline int ntt_threads(int N) { return N / 2 < 512 ? N / 2 : 512; }
-
-// log2 of a power of two (host; the NTT and blind-rotation entry points).
-inline int log2_int(int N) {
-  int l = 0;
-  while ((1 << l) < N) ++l;
-  return l;
+template <int LogN, bool kLazy, bool kOutBr>
+int launch_forward(const Args& args, cudaStream_t stream) {
+  const int blocks = (args.rows + kRows<LogN> - 1) / kRows<LogN>;
+  if (blocks > 0) forward_kernel<LogN, kLazy, kOutBr><<<blocks, kThreads<LogN>, 0, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
 }
 
+template <int LogN, bool kLazy>
+int launch_inverse(const Args& args, cudaStream_t stream) {
+  const int blocks = (args.rows + kRows<LogN> - 1) / kRows<LogN>;
+  if (blocks > 0) inverse_kernel<LogN, kLazy><<<blocks, kThreads<LogN>, 0, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ntt
 }  // namespace fhe

@@ -1,0 +1,51 @@
+// Arguments and launchers of the NTT kernels, declared for the dispatcher
+// (ntt.cu) without their definitions: those are in ntt.cuh, instantiated
+// once per N by ntt_inst.cu.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace fhe {
+
+// log2 of a power of two (host; the NTT and blind-rotation entry points).
+inline int log2_int(int N) {
+  int l = 0;
+  while ((1 << l) < N) ++l;
+  return l;
+}
+
+namespace ntt {
+
+// One transform of `rows` rows of N residues, x -> y (both [rows, N]), with
+// the plan's table for the direction (fwd_w / fwd_ws or inv_w / inv_ws,
+// 16-byte aligned).  The inverse's scale: N^-1 and w_1 N^-1 (w_1 = inv_w[1],
+// the last stage's twiddle), each with its Shoup companion.
+struct Args {
+  const uint32_t* x;
+  uint32_t* y;
+  const uint32_t* w;
+  const uint32_t* ws;
+  int rows;
+  uint32_t q, ninv, ninv_s, w1_ninv, w1_ninv_s;
+};
+
+// Threads per row (N/8) and rows per block: about 256 threads a block
+// where N <= 2048, one row a block above.
+template <int LogN>
+constexpr int kG = 1 << (LogN - 3);
+template <int LogN>
+constexpr int kRows = kG<LogN> >= 256 ? 1 : 256 / kG<LogN>;
+
+// Forward NTT, natural COEFF -> natural EVAL (or, with kOutBr, the stages'
+// bit-reversed EVAL order); kLazy needs q < 2^30.
+template <int LogN, bool kLazy, bool kOutBr>
+int launch_forward(const Args& args, cudaStream_t stream);
+
+// Inverse NTT with the N^-1 scale, natural EVAL -> natural COEFF.
+template <int LogN, bool kLazy>
+int launch_inverse(const Args& args, cudaStream_t stream);
+
+}  // namespace ntt
+}  // namespace fhe

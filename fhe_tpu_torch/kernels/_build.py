@@ -3,12 +3,13 @@
 The sources in `csrc/` are compiled by `nvcc` for Hopper (`sm_90a`) into ONE
 shared library with a plain C interface, loaded with `ctypes`.  Each
 translation unit is compiled by its own `nvcc`, all started together:
-`ntt.cu`, `blind_rotate.cu` (the C entry points of the blind rotation) and
-`blind_rotate_inst.cu` once per shape of `csrc/cggi_shapes.h`
-(`-DFHE_INST_LOGN=.. -DFHE_INST_DG2=..`); one more `nvcc` links them.  The
-build runs at first use, into `fhe_tpu_torch/_build/<hash>/`, keyed by a
-hash of the sources and flags, so a changed source rebuilds and an
-unchanged one loads the cached library.
+`ntt.cu` and `blind_rotate.cu` (the C entry points), `ntt_inst.cu` once per
+N of `csrc/ntt_shapes.h` (`-DFHE_NTT_LOGN=..`) and `blind_rotate_inst.cu`
+once per shape of `csrc/cggi_shapes.h` (`-DFHE_INST_LOGN=..
+-DFHE_INST_DG2=..`); one more `nvcc` links them.  The build runs at first
+use, into `fhe_tpu_torch/_build/<hash>/`, keyed by a hash of the sources and
+flags, so a changed source rebuilds and an unchanged one loads the cached
+library.
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check` raises on a non-zero code, because a refused launch (too many
@@ -43,8 +44,9 @@ _U = ctypes.c_uint32
 
 # entry point -> argtypes (pointers and the stream as c_void_p)
 _SIGNATURES = {
-    "fhe_ntt_forward": (_P, _P, _P, _P, _I, _I, _U, _I, _P),
-    "fhe_ntt_inverse": (_P, _P, _P, _P, _I, _I, _U, _U, _U, _P),
+    "fhe_ntt_forward": (_P, _P, _P, _P, _I, _I, _U, _I, _I, _P),
+    "fhe_ntt_inverse": (_P, _P, _P, _P, _I, _I, _U, _U, _U, _U, _U, _I, _P),
+    "fhe_ntt_rows_per_block": (_I,),
     "fhe_cggi_scan": (_P,) * 9 + (_I,) * 8 + (_U,) * 7 + (_P,),
     "fhe_cggi_steps": (_P,) * 10 + (_I,) * 7 + (_U,) * 7 + (_P,),
     "fhe_cggi_occupancy": (_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)),
@@ -86,9 +88,19 @@ def shapes() -> tuple[tuple[int, int], ...]:
                  for log_n, dg2 in re.findall(r"X\((\d+),\s*(\d+)\)", text))
 
 
+@functools.lru_cache(maxsize=None)
+def ntt_sizes() -> tuple[int, ...]:
+    """The N the NTT kernels are instantiated for, from `csrc/ntt_shapes.h`
+    (no build needed)."""
+    text = (CSRC / "ntt_shapes.h").read_text()
+    return tuple(1 << int(log_n) for log_n in re.findall(r"X\((\d+)\)", text))
+
+
 def units() -> list[tuple[str, Path, tuple[str, ...]]]:
     """(object name, source, extra nvcc flags) of every translation unit."""
     out = [("ntt", CSRC / "ntt.cu", ()), ("blind_rotate", CSRC / "blind_rotate.cu", ())]
+    for N in ntt_sizes():
+        out.append((f"ntt_n{N}", CSRC / "ntt_inst.cu", (f"-DFHE_NTT_LOGN={N.bit_length() - 1}",)))
     for N, dg2 in shapes():
         out.append((f"cggi_n{N}_dg{dg2}", CSRC / "blind_rotate_inst.cu",
                     (f"-DFHE_INST_LOGN={N.bit_length() - 1}", f"-DFHE_INST_DG2={dg2}")))

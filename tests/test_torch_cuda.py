@@ -15,7 +15,8 @@ from fhe_tpu_torch import BinFheContext
 from fhe_tpu_torch.kernels import blind_rotate as kbr
 from fhe_tpu_torch.kernels import blind_rotate_br as kbr_br
 from fhe_tpu_torch.kernels import launch_counts
-from fhe_tpu_torch.math import ntt
+from fhe_tpu_torch.kernels import ntt as kntt
+from fhe_tpu_torch.math import ntt, primes
 from fhe_tpu_torch.tfhe import boot, boot_pallas, make_params, rgsw
 
 pytestmark = pytest.mark.cuda
@@ -41,17 +42,35 @@ def _same(got, want):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("rows,N", [(64, 1024), (4024, 1024), (64, 512), (3, 4096)])
-def test_ntt_kernels_match_plain(rows, N, cuda, gen):
-    q = 134215681 if N <= 1024 else 268369921
+@pytest.mark.parametrize("N", kntt.sizes())
+@pytest.mark.parametrize("q_bits", [27, 31])
+def test_ntt_kernels_match_plain(N, q_bits, cuda, gen):
+    """Every instantiated N, a prime below 2^30 (lazy butterflies) and one in
+    (2^30, 2^31) (canonical), with 1, 3 and P x SMs + 1 rows (the last
+    block holds masked rows): both output orders and the round trip."""
+    q = primes.last_prime(q_bits, 2 * N)
+    assert (q < kntt.LAZY_Q) == (q_bits == 27)
     plan = ntt.make_plan(N, q, cuda)
-    x = _residues(gen, q, (rows, N), cuda)
-    f = ntt.ntt_forward(plan, x)
-    _same(f, ntt.forward_butterfly(plan, x))
-    _same(ntt.ntt_forward(plan, x, out_br=True), ntt.forward_butterfly(plan, x, out_br=True))
-    i = ntt.ntt_inverse(plan, f)
-    _same(i, ntt.inverse_butterfly(plan, f))
-    _same(i, x)
+    for rows in (1, 3, kntt.rows_per_block(N) * _sm_count(cuda) + 1):
+        x = _residues(gen, q, (rows, N), cuda)
+        f = ntt.ntt_forward(plan, x)
+        _same(f, ntt.forward_butterfly(plan, x))
+        _same(ntt.ntt_forward(plan, x, out_br=True), ntt.forward_butterfly(plan, x, out_br=True))
+        i = ntt.ntt_inverse(plan, f)
+        _same(i, ntt.inverse_butterfly(plan, f))
+        _same(i, x)
+
+
+@pytest.mark.parametrize("N", [4096, 1 << 14])
+def test_ntt_kernels_reject_unlisted_n(N, cuda):
+    """An N outside csrc/ntt_shapes.h: ValueError before any launch."""
+    plan = ntt.make_plan(N, primes.last_prime(27, 2 * N), cuda)
+    x = torch.zeros(2, N, dtype=torch.int32, device=cuda)
+    before = launch_counts()
+    for fn in (ntt.ntt_forward, ntt.ntt_inverse):
+        with pytest.raises(ValueError, match=f"no NTT kernel for N = {N}"):
+            fn(plan, x)
+    assert launch_counts() == before
 
 
 def test_ntt_kernel_rejects_bad_input(cuda):
