@@ -23,7 +23,20 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    with the kernels' launch counters reset just before each accumulator's
    run and read just after; the three accumulators' outputs must be
    identical;
-5. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+5. [acc], the DM/AP and LMKCDEY accumulators (PyTorch ops around kernels 1
+   and 2): STD128_AP with method AP and STD128_LMKCDEY, each keyed from
+   SEED, AND and NAND on 4096 independent random bit pairs, a single-gate
+   AND and CMUX at batch 4096 (batch 1024 for a method whose batch-4096
+   gate takes over 5 s), decrypted against the truth tables (0 wrong, but
+   for LMKCDEY's own failures: `check_gate`), with the
+   launch counters reset before and read after each method's run: kernels
+   3-5 launch 0 times and kernels 1-2 exactly as often as the DM steps, or
+   the LMKCDEY schedule's branches, need; kernels 1-2 byte-equal to their
+   plain versions at every shape these gates launch them at; gates/s,
+   single-gate latency and the share of the gate in kernels 1-2; TOY with
+   method AP and TOY_LMKCDEY on the card byte-identical to the CPU, and an
+   N = 2048 set (STD256Q_LMKCDEY) at batch 64;
+6. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
    the NTT kernels, and their plain versions, with a cold L2 (each call
@@ -43,9 +56,11 @@ the card's `nvidia-smi` name and power limit, then
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import importlib.util
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -69,6 +84,17 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
 }
 # the accumulator kernel each ntt_impl runs, and its launches per gate
 ACC_KERNEL = {None: "blind_rotate", "mega": "blind_rotate_mega", "fused": "rotate_step_br"}
+# the [acc] phase: (set, method) at full width; the batch for a method whose
+# batch-4096 gate takes longer than SLOW_GATE_MS
+ACC_SETS = (("STD128_AP", "AP"), ("STD128_LMKCDEY", None))
+ACC_SMALL_BATCH = 1024
+SLOW_GATE_MS = 5000.0
+# LMKCDEY's own decryption failures: the rate a gate's input phase, as the
+# accumulator sees it, is past the q/8 margin (about 1e-4 on bootstrapped
+# inputs at STD128_LMKCDEY: PERF.md §6), and the chance of a fault-free
+# run having more such outputs than check_gate allows
+LMK_PAST_RATE = 1e-4
+LMK_PAST_TAIL = 1e-3
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
@@ -312,6 +338,289 @@ def main_path(dev):
     return ctx, key, cts, path_launches
 
 
+def comb_mask(ct1, ct2) -> np.ndarray:
+    """The mask a two-input gate other than XOR blind-rotates by: ct1 + ct2."""
+    return ((ct1.a.to(torch.int64) + ct2.a) % ct1.modulus).cpu().numpy()
+
+
+def gate_ntt_launches(p, key, a: np.ndarray) -> collections.Counter:
+    """(kernel, rows) -> launches of kernels 1 and 2 in one DM or LMKCDEY
+    gate on the combined mask a [B, n]: the test vector's forward and
+    extract_lwe's inverse, and per DM step, or per LMKCDEY automorphism or
+    external-product branch the schedule runs, one inverse (of [B, N] or
+    [B, 2, N]) and one forward (of the [B, dGa, N] or [B, dG2, N] digits)."""
+    from fhe_tpu_torch.tfhe import acc
+    B = a.shape[0]
+    out = collections.Counter({("ntt_forward", B): 1, ("ntt_inverse", 2 * B): 1})
+    if isinstance(key, acc.DmKey):
+        auto, ext = 0, p.n * p.digits_r
+    else:
+        kinds, p1, _, _ = acc.lmk_schedule(p, a)
+        auto, ext = (int(run.sum()) for run in acc.lmk_branches(kinds, p1))
+    out[("ntt_inverse", B)] += auto
+    out[("ntt_forward", B * (p.digits_g - 1))] += auto
+    out[("ntt_inverse", 2 * B)] += ext
+    out[("ntt_forward", B * p.digits_g2)] += ext
+    return out
+
+
+def input_margin(p, sk, ct1, ct2, bits1, bits2) -> np.ndarray:
+    """Per element, |e| / (q/8): the phase error of a gate's input sum
+    ct1 + ct2 against bits1 + bits2, with the mask the accumulator rotates
+    by: LMKCDEY rounds each exponent (q - a_i) up to odd (rgsw-acc-lmkcdey.cpp
+    EvalAcc; with a Gaussian secret this adds sum_i s_i over about n/2
+    coefficients), GINX and AP take a as it is.  A gate can decrypt wrong
+    only where this is >= 1."""
+    from fhe_tpu_torch.tfhe import Method
+    q = p.q
+    a = (ct1.a.to(torch.int64) + ct2.a) % q
+    if p.method == Method.LMKCDEY:
+        a = (q - (((q - a) % q) | 1)) % q                   # q = 2N
+    b = (ct1.b.to(torch.int64) + ct2.b) % q
+    phase = (b - (a * sk.s.to(a.device, torch.int64)).sum(-1)) % q
+    nominal = torch.from_numpy((bits1 + bits2) * (q // 4)).to(phase.device)
+    err = (phase - nominal + q // 2) % q - q // 2
+    return err.abs().cpu().numpy() / (q / 8)
+
+
+def poisson_limit(mean: float, tail: float) -> int:
+    """The least k with P(X > k) < tail for X ~ Poisson(mean)."""
+    k, term = 0, math.exp(-mean)
+    cdf = term
+    while 1 - cdf >= tail:
+        k += 1
+        term *= mean / k
+        cdf += term
+    return k
+
+
+def check_gate(what: str, ctx, sk, out, truth, ct1, ct2, bits1, bits2) -> np.ndarray:
+    """A gate's output against its truth table: 0 wrong for GINX and AP.
+    An LMKCDEY output may be wrong only where its input phase, as the
+    accumulator sees it, is past the q/8 margin (`input_margin`): the
+    reference's own decryption failure (fhe_tpu gives the same ciphertext:
+    tests/test_torch_acc.py::test_std128_lmkcdey_cmux_failure_is_the_reference_s).
+    Such inputs may number at most `poisson_limit` of LMK_PAST_RATE a gate.
+    Returns where the inputs are past."""
+    from fhe_tpu_torch.tfhe import Method
+    p = ctx.params
+    if out.a.shape != truth.shape + (p.n,) or out.modulus != p.q:
+        fail(f"{what}: output ciphertext shape {tuple(out.a.shape)} mod {out.modulus}")
+    got = ctx.decrypt(sk, out).cpu().numpy()
+    margin = input_margin(p, sk, ct1, ct2, bits1, bits2)
+    wrong = got != truth
+    past = margin >= 1
+    print(f"{what}: {int(wrong.sum())} wrong of {got.size} (ones in output: {int(got.sum())}); "
+          f"{int(past.sum())} inputs past the q/8 margin (largest {margin.max():.3f} q/8)"
+          + (f", at {np.nonzero(past)[0][:8].tolist()}" if past.any() else ""))
+    if p.method != Method.LMKCDEY:
+        past = np.zeros_like(past)
+    if (wrong & ~past).any():
+        fail(f"{what} does not decrypt to its truth table"
+             + (" inside the noise margin" if p.method == Method.LMKCDEY else ""))
+    limit = poisson_limit(LMK_PAST_RATE * got.size, LMK_PAST_TAIL)
+    if past.sum() > limit:
+        fail(f"{what}: {int(past.sum())} inputs past the q/8 margin, more than the {limit} "
+             f"that a rate of {LMK_PAST_RATE} a gate allows")
+    return past
+
+
+def check_acc_launches(what: str, launches: dict, expected: collections.Counter) -> None:
+    """Kernels 3-5 not launched; kernels 1-2 exactly as often as expected."""
+    for name in ACC_KERNEL.values():
+        if launches[name]:
+            fail(f"{what}: rotation kernel {name} launched {launches[name]} times")
+    for name in ("ntt_forward", "ntt_inverse"):
+        want = sum(n for (kernel, _), n in expected.items() if kernel == name)
+        if launches[name] != want:
+            fail(f"{what}: {launches[name]} {name} launches, expected {want}")
+    print(f"[acc] {what}: launches {launches}, as expected")
+
+
+def path_ntts(tag: str, dev, p, per_gate: collections.Counter, errors: Errors,
+              card: str | None = None) -> tuple[float, int]:
+    """Kernels 1 and 2 at every (kernel, rows) shape a DM or LMKCDEY gate
+    launches them at, byte-equal to their plain versions on random residues
+    mod Q.  With card, each is also timed (10 launches back to back), beside
+    its plain version's time and its bound; returns (kernel ms, launches) a
+    gate, 0.0 ms untimed."""
+    from fhe_tpu_torch.math import ntt
+    plan = ntt.make_plan(p.N, p.Q, dev)
+    gen = np.random.default_rng(SEED + 4)
+    kern_ms, kern_launches = 0.0, 0
+    for (kernel, rows), n in sorted(per_gate.items()):
+        if not n:
+            continue
+        x = _residues(gen, p.Q, (rows, p.N), dev)
+        fn, plain = ((ntt.ntt_forward, ntt.forward_butterfly) if kernel == "ntt_forward" else
+                     (ntt.ntt_inverse, ntt.inverse_butterfly))
+        errors.compare(kernel, fn(plan, x), plain(plan, x), f"{tag} {kernel} [{rows}, {p.N}]")
+        kern_launches += n
+        if card is None:
+            continue
+        ms = time_ms(lambda: [fn(plan, x) for _ in range(10)], reps=3) / 10
+        p_ms = time_ms(lambda: plain(plan, x), reps=3)
+        butterflies = p.N // 2 * plan.logN
+        muls = 3 * (butterflies + (p.N if kernel == "ntt_inverse" else 0)) * rows
+        b_ms, b_by = bound(_nbytes(x, x, plan.fwd_w, plan.fwd_ws), muls, int_multiply_peak(dev))
+        print(f"{tag} {kernel} [{rows}, {p.N}]: {ms:.4f} ms a launch (10 back to back), "
+              f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}, at {b_ms / ms:.3f} of it; "
+              f"{n} launches a gate  ({card})")
+        kern_ms += n * ms
+    return kern_ms, kern_launches
+
+
+def acc_method(dev, name: str, method, errors: Errors, card: str) -> None:
+    """One accumulator's [acc] run at full width: keygen, the counted gates
+    against their truth tables, kernels 1-2 against their plain versions at
+    the gate's shapes, then gates/s, single-gate latency and the share of
+    kernels 1-2."""
+    from fhe_tpu_torch import BinFheContext, kernels
+    from fhe_tpu_torch.tfhe import Gate, acc, boot, lwe
+    t0 = time.perf_counter()
+    ctx = BinFheContext.generate(name, method=method, device=dev)
+    p = ctx.params
+    tag = f"[acc] {name} ({p.method.value})"
+    rng = np.random.default_rng(SEED)
+    sk = ctx.key_gen(rng)
+    key = ctx.bt_key_gen(sk, rng)
+    torch.cuda.synchronize()
+    shapes = {k: tuple(v.shape) for k, v in vars(key).items() if isinstance(v, torch.Tensor)}
+    print(f"{tag} keygen (ksk {tuple(key.ksk.a.shape)}, {shapes}) on {dev}: "
+          f"{time.perf_counter() - t0:.3f} s (host clock)")
+    m1, m2, sel = (rng.integers(0, 2, size=BATCH) for _ in range(3))
+    ct1, ct2, cs = (ctx.encrypt(sk, m, rng) for m in (m1, m2, sel))
+    one1, one2 = ctx.encrypt(sk, m1[:1], rng), ctx.encrypt(sk, m2[:1], rng)
+
+    batch = BATCH
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    and_ms, and_out = timed_once(lambda: ctx.eval_bin_gate(key, Gate.AND, ct1, ct2))
+    if and_ms > SLOW_GATE_MS:
+        batch = ACC_SMALL_BATCH
+        print(f"{tag}: AND at batch {BATCH} took {and_ms:.3f} ms, over {SLOW_GATE_MS:.0f} ms: "
+              f"batch {batch} from here, counted from the start")
+        m1, m2, sel = m1[:batch], m2[:batch], sel[:batch]
+        ct1, ct2, cs = (dataclasses.replace(c, a=c.a[:batch], b=c.b[:batch])
+                        for c in (ct1, ct2, cs))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        and_out = ctx.eval_bin_gate(key, Gate.AND, ct1, ct2)
+    outs = {f"AND batch {batch}": and_out,
+            f"NAND batch {batch}": ctx.eval_bin_gate(key, Gate.NAND, ct1, ct2),
+            "single AND": ctx.eval_bin_gate(key, Gate.AND, one1, one2),
+            f"CMUX batch {batch}": ctx.eval_cmux(key, ct1, ct2, cs)}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    # the CMUX's three NANDs: (ct1, NOT sel), (ct2, sel), then the two
+    # outputs; the first two are made again, after the counted run, for
+    # the inputs of the third
+    ncs = ctx.eval_not(cs)
+    nand1 = ctx.eval_bin_gate(key, Gate.NAND, ct1, ncs)
+    nand2 = ctx.eval_bin_gate(key, Gate.NAND, ct2, cs)
+    d1, d2 = (ctx.decrypt(sk, c).cpu().numpy() for c in (nand1, nand2))
+    cmux = outs[f"CMUX batch {batch}"]
+    past = [check_gate(f"{tag} {what}", ctx, sk, out, truth, *inputs)
+            for what, out, inputs, truth in [
+                (f"AND batch {batch}", outs[f"AND batch {batch}"], (ct1, ct2, m1, m2), m1 & m2),
+                (f"NAND batch {batch}", outs[f"NAND batch {batch}"], (ct1, ct2, m1, m2),
+                 1 - (m1 & m2)),
+                ("single AND", outs["single AND"], (one1, one2, m1[:1], m2[:1]), (m1 & m2)[:1]),
+                ("CMUX's NAND(ct1, NOT sel)", nand1, (ct1, ncs, m1, 1 - sel),
+                 1 - (m1 & (1 - sel))),
+                ("CMUX's NAND(ct2, sel)", nand2, (ct2, cs, m2, sel), 1 - (m2 & sel)),
+                ("CMUX's NAND of those two", cmux, (nand1, nand2, d1, d2), 1 - (d1 & d2))]]
+    wrong = ctx.decrypt(sk, cmux).cpu().numpy() != np.where(sel == 1, m2, m1)
+    print(f"{tag} CMUX batch {batch}: {int(wrong.sum())} wrong of {batch} against sel ? m2 : m1"
+          + (f", at {np.nonzero(wrong)[0][:8].tolist()}" if wrong.any() else ""))
+    if (wrong & ~(past[3] | past[4] | past[5])).any():
+        fail(f"{tag} CMUX is wrong where none of its NANDs' inputs is past the margin")
+    masks = [comb_mask(ct1, ct2)] * 2 + [comb_mask(one1, one2), comb_mask(ct1, ncs),
+                                         comb_mask(ct2, cs), comb_mask(nand1, nand2)]
+    per_gate = [gate_ntt_launches(p, key, a) for a in masks]
+    check_acc_launches(f"{name} ({p.method.value}), 6 gates", launches,
+                       sum(per_gate, collections.Counter()))
+    if isinstance(key, acc.LmkcdeyKey):
+        t0 = time.perf_counter()
+        kinds, _, _, T = acc.lmk_schedule(p, masks[0])
+        sched_ms = (time.perf_counter() - t0) * 1e3
+        ops, ext = (kinds > 0).sum(axis=1), (kinds == 2).sum(axis=1)
+        print(f"{tag} schedule of the AND at batch {batch}: T = {T} slots; per ciphertext "
+              f"{ops.min()}-{ops.max()} ops, {ext.min()}-{ext.max()} external products; "
+              f"lmk_schedule {sched_ms:.3f} ms on the host (host clock)")
+
+    batch_ms = time_ms(lambda: ctx.eval_bin_gate(key, Gate.AND, ct1, ct2), reps=3)
+    single_ms = time_ms(lambda: ctx.eval_bin_gate(key, Gate.AND, one1, one2), reps=5)
+    comb = lwe.add(ct1, ct2)
+    tv = boot.make_gate_test_vector(p, comb.b, boot.gate_constants(p, Gate.AND))
+    rot_ms = time_ms(lambda: boot.run_accumulator(p, key, tv, comb.a), reps=3)
+    path_ntts(tag, dev, p, per_gate[2], errors)             # the single gate's shapes
+    kern_ms, kern_launches = path_ntts(tag, dev, p, per_gate[0], errors, card)
+    print(f"{tag} AND batch {batch}: {batch_ms:.3f} ms = {batch / batch_ms * 1e3:.1f} gates/s  "
+          f"({card})")
+    print(f"{tag} single-gate AND latency: {single_ms:.3f} ms  ({card})")
+    print(f"{tag} AND batch {batch}: accumulator alone {rot_ms:.3f} ms; kernels 1-2 "
+          f"{kern_ms:.3f} ms ({kern_launches} launches) = {kern_ms / batch_ms:.3f} of the gate, "
+          f"{kern_ms / rot_ms:.3f} of the accumulator; PyTorch glue of the accumulator "
+          f"{rot_ms - kern_ms:.3f} ms; rest of the gate {batch_ms - rot_ms:.3f} ms  ({card})")
+
+
+def acc_card_vs_cpu(dev) -> None:
+    """TOY with method AP and TOY_LMKCDEY: keys from one seed, AND on 64
+    random bit pairs on the card and on the CPU; the outputs must be
+    byte-identical and decrypt to the truth table."""
+    from fhe_tpu_torch import BinFheContext
+    m1, m2 = np.random.default_rng(SEED + 3).integers(0, 2, size=(2, 64))
+    for name, method in (("TOY", "AP"), ("TOY_LMKCDEY", None)):
+        outs = []
+        for d in (torch.device("cpu"), dev):
+            ctx = BinFheContext.generate(name, method=method, device=d)
+            rng = np.random.default_rng(SEED)
+            sk = ctx.key_gen(rng)
+            key = ctx.bt_key_gen(sk, rng)
+            out = ctx.eval_bin_gate(key, "AND", ctx.encrypt(sk, m1, rng), ctx.encrypt(sk, m2, rng))
+            if not np.array_equal(ctx.decrypt(sk, out).cpu().numpy(), m1 & m2):
+                fail(f"{name} ({ctx.params.method.value}) AND on {d} is wrong")
+            outs.append(out.to("cpu"))
+        if not (torch.equal(outs[0].a, outs[1].a) and torch.equal(outs[0].b, outs[1].b)):
+            fail(f"{name} ({ctx.params.method.value}) AND: card output differs from the CPU's")
+        print(f"[acc] {name} ({ctx.params.method.value}) AND batch 64: 0 wrong; the card's "
+              f"output ciphertexts byte-identical to the CPU's")
+
+
+def acc_n2048(dev, errors: Errors) -> None:
+    """One AND at batch 64 on STD256Q_LMKCDEY (N = 2048, q = 2N): kernels
+    1-2 at N = 2048 on the LMKCDEY path, launches counted, and each of its
+    shapes against the plain versions."""
+    from fhe_tpu_torch import BinFheContext, kernels
+    ctx = BinFheContext.generate("STD256Q_LMKCDEY", device=dev)
+    rng = np.random.default_rng(SEED)
+    sk = ctx.key_gen(rng)
+    key = ctx.bt_key_gen(sk, rng)
+    m1, m2 = rng.integers(0, 2, size=(2, 64))
+    ct1, ct2 = ctx.encrypt(sk, m1, rng), ctx.encrypt(sk, m2, rng)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ms, out = timed_once(lambda: ctx.eval_bin_gate(key, "AND", ct1, ct2))
+    launches = kernels.launch_counts()
+    wrong = int((ctx.decrypt(sk, out).cpu().numpy() != (m1 & m2)).sum())
+    print(f"[acc] STD256Q_LMKCDEY (N = {ctx.params.N}) AND batch 64: {wrong} wrong, {ms:.3f} ms")
+    if wrong:
+        fail("STD256Q_LMKCDEY AND does not decrypt to its truth table")
+    expected = gate_ntt_launches(ctx.params, key, comb_mask(ct1, ct2))
+    check_acc_launches("STD256Q_LMKCDEY, 1 gate", launches, expected)
+    path_ntts("[acc] STD256Q_LMKCDEY", dev, ctx.params, expected, errors)
+
+
+def acc_phase(dev, errors: Errors, card: str) -> None:
+    for name, method in ACC_SETS:
+        acc_method(dev, name, method, errors, card)
+        torch.cuda.empty_cache()
+    acc_card_vs_cpu(dev)
+    acc_n2048(dev, errors)
+    torch.cuda.empty_cache()
+
+
 def time_ms(fn, reps: int) -> float:
     """Median CUDA-event time of fn() in ms; the caller has warmed fn up."""
     times = []
@@ -353,6 +662,12 @@ def step_multiplies(p) -> int:
     external = 2 * 2 * (2 * p.digits_g2 + 2) * p.N
     monomial = 2 * (2 * 2 + 2) * p.N
     return ntts + external + monomial + 2 * p.N
+
+
+def int_multiply_peak(dev) -> float:
+    """32-bit integer multiplies a second: SMs x 64 a clock x the max SM clock."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * IMUL_PER_CLOCK_PER_SM * max_sm_clock_hz()
 
 
 def bound(nbytes: int, muls: int, int_peak: float):
@@ -414,7 +729,7 @@ def timings(dev, ctx, key, cts, errors: Errors, card: str) -> dict:
 
     clock = max_sm_clock_hz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    int_peak = sms * IMUL_PER_CLOCK_PER_SM * clock
+    int_peak = int_multiply_peak(dev)
     print(f"[bound] memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s (data sheet); 32-bit integer "
           f"multiply peak {int_peak / 1e12:.3f} T/s = {sms} SMs x {IMUL_PER_CLOCK_PER_SM}/clock "
           f"x {clock / 1e9:.3f} GHz max SM clock (derived, not a data-sheet rate)")
@@ -499,6 +814,7 @@ def main() -> int:
     errors = Errors()
     check_kernels(dev, errors)
     ctx, key, cts, launches = main_path(dev)
+    acc_phase(dev, errors, card)
     times = timings(dev, ctx, key, cts, errors, card)
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errors.max[name],

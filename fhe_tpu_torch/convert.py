@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .tfhe.acc import DmKey, LmkcdeyKey
 from .tfhe.lwe import LweCiphertext, LweSecretKey, LweSwitchingKey
 from .tfhe.rgsw import BootstrapKey
 
@@ -42,6 +43,20 @@ def ciphertext(a, b, modulus: int, pt_mod: int = 4, device="cuda") -> LweCiphert
 def bootstrap_key(bsk, ksk_a, ksk_b, device="cuda") -> BootstrapKey:
     """fhe_tpu BootstrapKey (bsk, ksk.a, ksk.b) -> BootstrapKey.  The
     fhe_tpu Shoup dual `bsk_shoup` is not carried: the port has none."""
-    return BootstrapKey(bsk=_residues(bsk, "bsk", device),
-                        ksk=LweSwitchingKey(a=_residues(ksk_a, "ksk.a", device),
-                                            b=_residues(ksk_b, "ksk.b", device)))
+    return BootstrapKey(bsk=_residues(bsk, "bsk", device), ksk=_ksk(ksk_a, ksk_b, device))
+
+
+def dm_key(bsk, ksk_a, ksk_b, device="cuda") -> DmKey:
+    """fhe_tpu acc.DmKey (bsk, ksk.a, ksk.b) -> DmKey."""
+    return DmKey(bsk=_residues(bsk, "bsk", device), ksk=_ksk(ksk_a, ksk_b, device))
+
+
+def lmkcdey_key(rgsw, auto, ksk_a, ksk_b, device="cuda") -> LmkcdeyKey:
+    """fhe_tpu acc.LmkcdeyKey (rgsw, auto, ksk.a, ksk.b) -> LmkcdeyKey."""
+    return LmkcdeyKey(rgsw=_residues(rgsw, "rgsw", device), auto=_residues(auto, "auto", device),
+                      ksk=_ksk(ksk_a, ksk_b, device))
+
+
+def _ksk(ksk_a, ksk_b, device) -> LweSwitchingKey:
+    return LweSwitchingKey(a=_residues(ksk_a, "ksk.a", device),
+                           b=_residues(ksk_b, "ksk.b", device))

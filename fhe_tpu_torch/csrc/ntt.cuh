@@ -21,7 +21,7 @@
 // - Register-resident rounds: an edge round straight from global memory
 //   into registers, the middle rounds through the swizzled exchange buffer
 //   (ntt_word: one XOR an access), an edge round from registers to global
-//   memory: 2 barriers at N <= 1024, 3 at N = 2048 and 8192 (was
+//   memory: 2 barriers at N <= 1024, 3 at N >= 2048 (was
 //   log N + 1), and no bank conflict in any exchange.
 // - The bit reversal folded into the thread map, with no extra pass: on the
 //   natural-order edge (the forward's last round, the inverse's first)
@@ -51,8 +51,9 @@ namespace ntt {
 template <int LogN>
 constexpr int kThreads = kRows<LogN> * kG<LogN>;
 
-// Four blocks of 256 threads a SM (one of 1024 at N = 8192): registers
-// capped at 64 a thread.  (Three blocks at about 70 registers ran slower.)
+// Four blocks of 256 threads a SM (two of 512 at N = 4096, one of 1024 at
+// N = 8192): registers capped at 64 a thread.  (Three blocks at about 70
+// registers ran slower.)
 template <int LogN>
 constexpr int kMinBlocks = kThreads<LogN> >= 1024 ? 1 : 1024 / kThreads<LogN>;
 

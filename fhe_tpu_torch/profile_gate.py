@@ -1,21 +1,26 @@
-"""Where the time of the STD128 gate goes, on one CUDA card.
+"""Where the time of a gate goes, on one CUDA card.
 
-    python3 -m fhe_tpu_torch.profile_gate [--seed S] [--batch B]
+    python3 -m fhe_tpu_torch.profile_gate [--seed S] [--batch B] [--set NAME] [--method M]
 
-Makes STD128 keys from the seed on cuda:0, then prints:
+Makes the keys of --set (default STD128; --method AP for DM, the
+*_LMKCDEY sets for LMKCDEY) from the seed on cuda:0, then prints:
 
 1. a batch sweep of the whole AND gate (CUDA events, median of 3);
 2. at --batch, the gate's stages one by one (CUDA events, median of 3):
-   test vector, forward NTT, blind rotation, extraction, and the three
+   test vector, forward NTT, blind rotation (for DM and LMKCDEY the whole
+   accumulator, its forward NTT included), extraction, and the three
    parts of switch_ct_to_qn; and the peak device memory of one gate;
 3. one torch.profiler trace of the gate at --batch: the host wall time,
    the device busy time (the union of the CUDA kernel and memcpy/memset
-   intervals), their ratio (busy share), and the kernels by device time;
-4. the blind-rotation kernels alone at batch 1 and 4096 (CUDA events,
-   median of 3): the scan in both orders and kernel 5's n launches, with
-   the ciphertexts per block (C) that the wrappers choose.
+   intervals), their ratio (busy share), the kernels by device time and
+   the PyTorch operators by their own device time;
+4. for GINX, the blind-rotation kernels alone at batch 1 and 4096 (CUDA
+   events, median of 3): the scan in both orders and kernel 5's n
+   launches, with the ciphertexts per block (C) that the wrappers choose.
 
-Every line carries the card's name and power limit.
+Every line carries the card's name and power limit.  PERF.md's tables of
+where the AP and LMKCDEY gates' time goes come from
+`--set STD128_AP --method AP` and `--set STD128_LMKCDEY`.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 
 from . import BinFheContext
 from .math import ntt as nttmod
-from .tfhe import boot, lwe
+from .tfhe import boot, lwe, rgsw
 from .tfhe.params import Gate
 
 SWEEP = (1, 8, 64, 256, 1024, 4096, 8192)
@@ -77,7 +82,10 @@ def stages(ctx, sk, key, rng, batch: int, card: str):
     tv = boot.make_gate_test_vector(p, comb.b, consts)
     acc1 = nttmod.ntt_forward(plan, tv)
     acc = torch.stack([torch.zeros_like(acc1), acc1], dim=1).contiguous()
-    rot = boot.blind_rotate(p, key, acc, comb.a)
+    ginx = isinstance(key, rgsw.BootstrapKey)
+    rotate = ((lambda: boot.blind_rotate(p, key, acc, comb.a)) if ginx else
+              (lambda: boot.run_accumulator(p, key, tv, comb.a)))
+    rot = rotate()
     offset = p.Q // 8 + 1
     ext = boot.extract_lwe(p, rot, offset)
     ms1 = lwe.mod_switch(ext, p.q_ks)
@@ -86,7 +94,7 @@ def stages(ctx, sk, key, rng, batch: int, card: str):
         "lwe add": lambda: lwe.add(ct1, ct2),
         "test vector": lambda: boot.make_gate_test_vector(p, comb.b, consts),
         "forward NTT (kernel)": lambda: nttmod.ntt_forward(plan, tv),
-        "blind rotation (kernel)": lambda: boot.blind_rotate(p, key, acc, comb.a),
+        "blind rotation (kernel)" if ginx else "accumulator (forward NTT included)": rotate,
         "extract_lwe (flip + inverse NTT kernel)": lambda: boot.extract_lwe(p, rot, offset),
         "mod switch Q -> q_ks": lambda: lwe.mod_switch(ext, p.q_ks),
         "key switch": lambda: lwe.key_switch(p, key.ksk, ms1),
@@ -146,6 +154,11 @@ def trace(ctx, key, ct1, ct2, batch: int, card: str) -> None:
           f"{busy_us / wall_us:.3f}  ({card})")
     for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"[trace]   {us / 1e3:9.3f} ms  x{count:<3d} {name[:110]}")
+    ops = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+           if e.key.startswith("aten::")]
+    for us, count, name in sorted(ops, reverse=True)[:12]:
+        if us > 0:
+            print(f"[trace] operator {us / 1e3:9.3f} ms self device time  x{count:<6d} {name}")
 
 
 def rotation(ctx, key, rng, card: str) -> None:
@@ -169,19 +182,23 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=20261016)
     parser.add_argument("--batch", type=int, default=4096)
+    parser.add_argument("--set", default="STD128")
+    parser.add_argument("--method", default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_gate: no CUDA device")
     card = card_line()
     print(f"[device] {card}; torch {torch.__version__}")
-    ctx = BinFheContext.generate("STD128", device="cuda")
+    ctx = BinFheContext.generate(args.set, method=args.method, device="cuda")
+    print(f"[device] {args.set} ({ctx.params.method.value})")
     rng = np.random.default_rng(args.seed)
     sk = ctx.key_gen(rng)
     key = ctx.bt_key_gen(sk, rng)
     sweep(ctx, sk, key, rng, card)
     ct1, ct2 = stages(ctx, sk, key, rng, args.batch, card)
     trace(ctx, key, ct1, ct2, args.batch, card)
-    rotation(ctx, key, rng, card)
+    if isinstance(key, rgsw.BootstrapKey):
+        rotation(ctx, key, rng, card)
 
 
 if __name__ == "__main__":

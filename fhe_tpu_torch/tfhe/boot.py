@@ -8,8 +8,9 @@ EVALUATION format: its value at psi^(2k+1) is psi^((2k+1) idx) - 1.
 `blind_rotate` takes the plain PyTorch version (`blind_rotate_plain`,
 the scan of fhe_tpu's boot.blind_rotate) for CPU tensors and the CUDA
 kernel (`kernels.blind_rotate`) for CUDA tensors.  `run_accumulator`
-picks the accumulator by `ntt_impl`, as fhe_tpu does: this natural-order
-rotation, or the bit-reversed ones of `boot_pallas`.
+picks the accumulator by the key's method and, for GINX, by `ntt_impl`,
+as fhe_tpu does: this natural-order rotation, the bit-reversed ones of
+`boot_pallas`, or the DM and LMKCDEY rotations of `acc`.
 """
 
 from __future__ import annotations
@@ -22,19 +23,18 @@ import torch
 from ..kernels import blind_rotate as kbr
 from ..math import ntt as nttmod
 from ..math.modmath import add_mod, mont_mul, sub_mod
+from . import acc as accmod
 from . import lwe, rgsw
 from .params import Gate, TfheParams
+
+# the bootstrap keys of the three blind-rotation methods (GINX, AP, LMKCDEY)
+Key = rgsw.BootstrapKey | accmod.DmKey | accmod.LmkcdeyKey
 
 
 @functools.lru_cache(maxsize=None)
 def psi_powers_mont(N: int, Q: int) -> np.ndarray:
     """[2N] table of psi^e mod Q in Montgomery form (psi = 2N-th root)."""
-    psi = nttmod.make_plan(N, Q).psi
-    acc, out = 1, np.zeros(2 * N, dtype=np.int64)
-    for e in range(2 * N):
-        out[e] = (acc << 32) % Q
-        acc = acc * psi % Q
-    return out
+    return (accmod.psi_powers(N, Q) << 32) % Q
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,14 +149,18 @@ def make_gate_test_vector(params: TfheParams, b: torch.Tensor, consts) -> torch.
     return out.reshape(b.shape[0], N)
 
 
+def initial_acc(params: TfheParams, test_vec: torch.Tensor) -> torch.Tensor:
+    """The accumulator (0, NTT(test_vec)), [B, 2, N] natural EVALUATION."""
+    plan = nttmod.make_plan(params.N, params.Q, test_vec.device)
+    acc1 = nttmod.ntt_forward(plan, test_vec)
+    return torch.stack([torch.zeros_like(acc1), acc1], dim=1).contiguous()
+
+
 def bootstrap_core(params: TfheParams, key: rgsw.BootstrapKey, test_vec: torch.Tensor,
                    a: torch.Tensor) -> torch.Tensor:
     """Blind-rotate a COEFFICIENT test vector by the mask `a`; returns the
     accumulator [B, 2, N] in EVALUATION format."""
-    plan = nttmod.make_plan(params.N, params.Q, test_vec.device)
-    acc1 = nttmod.ntt_forward(plan, test_vec)
-    acc = torch.stack([torch.zeros_like(acc1), acc1], dim=1).contiguous()
-    return blind_rotate(params, key, acc, a)
+    return blind_rotate(params, key, initial_acc(params, test_vec), a)
 
 
 # ntt_impl -> accumulator.  fhe_tpu's NTT names compute the same transform
@@ -174,14 +178,25 @@ def accumulator(ntt_impl: str | None) -> str:
     return ACCUMULATORS[ntt_impl]
 
 
-def run_accumulator(params: TfheParams, key: rgsw.BootstrapKey, test_vec: torch.Tensor,
+def run_accumulator(params: TfheParams, key: Key, test_vec: torch.Tensor,
                     a: torch.Tensor, ntt_impl: str | None = None) -> torch.Tensor:
-    """GINX/CGGI accumulator dispatch (fhe_tpu boot.run_accumulator): test
-    vector [B, N] COEFFICIENT -> accumulator [B, 2, N] natural EVALUATION.
-    "mega": the bit-reversed whole scan (kernel 4); "fused": the
-    bit-reversed scan one step per launch (kernel 5); otherwise the
+    """Accumulator dispatch (fhe_tpu boot.run_accumulator, and the LMKCDEY
+    branch of its _finish_gate): test vector [B, N] COEFFICIENT ->
+    accumulator [B, 2, N] natural EVALUATION.
+
+    A DmKey runs `acc.blind_rotate_dm` and an LmkcdeyKey
+    `acc.blind_rotate_lmkcdey_scan`, whose schedule needs the mask on the
+    host (one copy a gate); both for every accepted `ntt_impl`, as in
+    fhe_tpu, whose "mega"/"fused" only match a GINX key.  A GINX
+    BootstrapKey: "mega", the bit-reversed whole scan (kernel 4); "fused",
+    the bit-reversed scan one step per launch (kernel 5); otherwise the
     natural-order whole scan (kernel 3)."""
     impl = accumulator(ntt_impl)
+    if isinstance(key, accmod.DmKey):
+        return accmod.blind_rotate_dm(params, key.bsk, initial_acc(params, test_vec), a)
+    if isinstance(key, accmod.LmkcdeyKey):
+        return accmod.blind_rotate_lmkcdey_scan(params, key.rgsw, key.auto,
+                                                initial_acc(params, test_vec), a.cpu().numpy())
     if impl == "mega2":
         return bootstrap_core(params, key, test_vec, a)
     from . import boot_pallas
@@ -203,7 +218,7 @@ def extract_lwe(params: TfheParams, acc: torch.Tensor, b_offset: int,
     return lwe.LweCiphertext(a=coef[:, 0, :], b=b, modulus=Q, pt_mod=p)
 
 
-def _finish_gate(params: TfheParams, key: rgsw.BootstrapKey, gate: Gate,
+def _finish_gate(params: TfheParams, key: Key, gate: Gate,
                  comb: lwe.LweCiphertext, p: int, extended: bool,
                  ntt_impl: str | None) -> lwe.LweCiphertext:
     lead = comb.batch_shape
@@ -219,12 +234,12 @@ def _finish_gate(params: TfheParams, key: rgsw.BootstrapKey, gate: Gate,
     return lwe.switch_ct_to_qn(params, key.ksk, ct)
 
 
-def _to_gate_domain(params: TfheParams, key: rgsw.BootstrapKey,
+def _to_gate_domain(params: TfheParams, key: Key,
                     ct: lwe.LweCiphertext) -> lwe.LweCiphertext:
     return lwe.switch_ct_to_qn(params, key.ksk, ct) if ct.modulus == params.Q else ct
 
 
-def eval_bin_gate(params: TfheParams, key: rgsw.BootstrapKey, gate: Gate,
+def eval_bin_gate(params: TfheParams, key: Key, gate: Gate,
                   ct1: lwe.LweCiphertext, ct2: lwe.LweCiphertext,
                   extended: bool = False, ntt_impl: str | None = None) -> lwe.LweCiphertext:
     """Two-input bootstrapped gate (binfhe-base-scheme.cpp EvalBinGate).
@@ -237,7 +252,7 @@ def eval_bin_gate(params: TfheParams, key: rgsw.BootstrapKey, gate: Gate,
     return _finish_gate(params, key, gate, comb, 4, extended, ntt_impl)
 
 
-def eval_bin_gate_multi(params: TfheParams, key: rgsw.BootstrapKey, gate: Gate,
+def eval_bin_gate_multi(params: TfheParams, key: Key, gate: Gate,
                         cts: list[lwe.LweCiphertext], extended: bool = False,
                         ntt_impl: str | None = None) -> lwe.LweCiphertext:
     """3/4-input gates + MAJORITY (EvalBinGate vector overload)."""
@@ -249,7 +264,7 @@ def eval_bin_gate_multi(params: TfheParams, key: rgsw.BootstrapKey, gate: Gate,
     return _finish_gate(params, key, gate, comb, comb.pt_mod, extended, ntt_impl)
 
 
-def bootstrap(params: TfheParams, key: rgsw.BootstrapKey, ct: lwe.LweCiphertext,
+def bootstrap(params: TfheParams, key: Key, ct: lwe.LweCiphertext,
               extended: bool = False, ntt_impl: str | None = None) -> lwe.LweCiphertext:
     """Plain refresh bootstrap (Bootstrap): shifts b by q/4, then runs the
     AND-gate pipeline on the single ciphertext."""

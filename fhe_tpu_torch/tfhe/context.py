@@ -4,9 +4,11 @@ A thin wrapper over the functions of lwe/rgsw/boot: parameters are static
 Python data, keys and ciphertexts are dataclasses of tensors on
 `self.device` (the first CUDA card unless the caller names another
 device, such as "cpu"), and every Eval* accepts batched ciphertexts.
-`ntt_impl` selects the accumulator as in fhe_tpu (`boot.run_accumulator`).
-Only the GINX/CGGI accumulator with a single-limb ring modulus is ported;
-the other paths raise NotImplementedError naming their ROADMAP.md item.
+`ntt_impl` selects the GINX accumulator as in fhe_tpu
+(`boot.run_accumulator`).  All three blind-rotation methods are ported
+(GINX/CGGI, AP/DM and LMKCDEY) with a single-limb ring modulus; the RNS
+ring and the other unported paths raise NotImplementedError naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import boot, lwe, rgsw
+from . import acc, boot, lwe, rgsw
+from .boot import Key
 from .params import Gate, Method, TfheParams, make_params
 
 
@@ -48,12 +51,8 @@ class BinFheContext:
                    ntt_impl=ntt_impl)
 
     def _require_ported(self) -> None:
-        if self.params.method == Method.AP:
-            _unported("the AP/DM accumulator", "item 7, tfhe/acc.py")
-        if self.params.method == Method.LMKCDEY:
-            _unported("the LMKCDEY accumulator", "item 7, tfhe/acc.py")
         if self.params.moduli_rns:
-            _unported(f"the RNS ring of {self.params.name}", "item 7, tfhe/rgsw_rns.py")
+            _unported(f"the RNS ring of {self.params.name}", "item 7b, tfhe/rgsw_rns.py")
 
     # -- key generation -----------------------------------------------------
     def key_gen(self, rng: np.random.Generator | int = 0) -> lwe.LweSecretKey:
@@ -64,15 +63,24 @@ class BinFheContext:
         return lwe.keygen(self.params, _rng(rng), dim=self.params.N, device=self.device)
 
     def bt_key_gen(self, sk: lwe.LweSecretKey, rng: np.random.Generator | int = 0,
-                   sk_n: lwe.LweSecretKey | None = None) -> rgsw.BootstrapKey:
+                   sk_n: lwe.LweSecretKey | None = None) -> Key:
         """BTKeyGen: draws sk_n (unless given), then the switching key, then
-        the bootstrap key, in fhe_tpu's order."""
+        the bootstrap key of the context's method, in fhe_tpu's order.  A
+        set LMKCDEY cannot key raises ValueError before any draw."""
+        p = self.params
+        if p.method == Method.LMKCDEY:
+            acc.check_lmkcdey(p)
         self._require_ported()
         rng = _rng(rng)
         if sk_n is None:
-            sk_n = lwe.keygen(self.params, rng, dim=self.params.N, device=self.device)
-        ksk = lwe.key_switch_gen(self.params, sk, sk_n, rng)
-        return rgsw.BootstrapKey(bsk=rgsw.bsk_gen(self.params, sk, sk_n, rng), ksk=ksk)
+            sk_n = lwe.keygen(p, rng, dim=p.N, device=self.device)
+        ksk = lwe.key_switch_gen(p, sk, sk_n, rng)
+        if p.method == Method.GINX:
+            return rgsw.BootstrapKey(bsk=rgsw.bsk_gen(p, sk, sk_n, rng), ksk=ksk)
+        if p.method == Method.AP:
+            return acc.DmKey(bsk=acc.dm_bsk_gen(p, sk, sk_n, rng), ksk=ksk)
+        rgsw_keys, auto_keys = acc.lmkcdey_key_gen(p, sk, sk_n, rng)
+        return acc.LmkcdeyKey(rgsw=rgsw_keys, auto=auto_keys, ksk=ksk)
 
     def key_gen_pair(self, rng: np.random.Generator | int = 0):
         _unported("public-key mode", "item 4, lwe.pub_key_gen / encrypt_pk")
@@ -90,7 +98,7 @@ class BinFheContext:
         return lwe.decrypt(self.params, sk, ct, p)
 
     # -- gates --------------------------------------------------------------
-    def eval_bin_gate(self, key: rgsw.BootstrapKey, gate: Gate | str,
+    def eval_bin_gate(self, key: Key, gate: Gate | str,
                       ct1: lwe.LweCiphertext, ct2: lwe.LweCiphertext,
                       extended: bool = False) -> lwe.LweCiphertext:
         gate = Gate[gate] if isinstance(gate, str) else gate
@@ -99,14 +107,14 @@ class BinFheContext:
         self._require_ported()
         return boot.eval_bin_gate(self.params, key, gate, ct1, ct2, extended, self.ntt_impl)
 
-    def eval_bin_gate_multi(self, key: rgsw.BootstrapKey, gate: Gate | str, cts,
+    def eval_bin_gate_multi(self, key: Key, gate: Gate | str, cts,
                             extended: bool = False) -> lwe.LweCiphertext:
         gate = Gate[gate] if isinstance(gate, str) else gate
         self._require_ported()
         return boot.eval_bin_gate_multi(self.params, key, gate, list(cts), extended,
                                         self.ntt_impl)
 
-    def eval_cmux(self, key: rgsw.BootstrapKey, ct0: lwe.LweCiphertext,
+    def eval_cmux(self, key: Key, ct0: lwe.LweCiphertext,
                   ct1: lwe.LweCiphertext, ct_sel: lwe.LweCiphertext) -> lwe.LweCiphertext:
         """CMUX by three NANDs (EvalBinGate vector overload): ct_sel ? ct1 : ct0."""
         nand1 = self.eval_bin_gate(key, Gate.NAND, ct0, self.eval_not(ct_sel))
@@ -138,20 +146,20 @@ class BinFheContext:
         (N, Q) ciphertext to (n, q)."""
         return lwe.switch_ct_to_qn(self.params, ksk, ct)
 
-    def bootstrap(self, key: rgsw.BootstrapKey, ct: lwe.LweCiphertext,
+    def bootstrap(self, key: Key, ct: lwe.LweCiphertext,
                   extended: bool = False) -> lwe.LweCiphertext:
         self._require_ported()
         return boot.bootstrap(self.params, key, ct, extended, self.ntt_impl)
 
     # -- functional bootstrapping -------------------------------------------
     def eval_func(self, key, ct, lut):
-        _unported("functional bootstrapping", "item 7, tfhe/funcboot.py")
+        _unported("functional bootstrapping", "item 7c, tfhe/funcboot.py")
 
     def eval_floor(self, key, ct, roundbits: int = 0):
-        _unported("functional bootstrapping", "item 7, tfhe/funcboot.py")
+        _unported("functional bootstrapping", "item 7c, tfhe/funcboot.py")
 
     def eval_sign(self, key, ct, scheme_switch: bool = False):
-        _unported("functional bootstrapping", "item 7, tfhe/funcboot.py")
+        _unported("functional bootstrapping", "item 7c, tfhe/funcboot.py")
 
     def eval_decomp(self, key, ct):
-        _unported("functional bootstrapping", "item 7, tfhe/funcboot.py")
+        _unported("functional bootstrapping", "item 7c, tfhe/funcboot.py")

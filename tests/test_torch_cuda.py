@@ -61,7 +61,7 @@ def test_ntt_kernels_match_plain(N, q_bits, cuda, gen):
         _same(i, x)
 
 
-@pytest.mark.parametrize("N", [4096, 1 << 14])
+@pytest.mark.parametrize("N", [1 << 14])
 def test_ntt_kernels_reject_unlisted_n(N, cuda):
     """An N outside csrc/ntt_shapes.h: ValueError before any launch."""
     plan = ntt.make_plan(N, primes.last_prime(27, 2 * N), cuda)
@@ -189,5 +189,36 @@ def test_toy_gate_on_card_matches_cpu(impl, cuda):
         assert ctx.decrypt(sk, out).tolist() == [0, 1, 1, 0]
         assert (launch_counts()[KERNEL_OF[impl]] > before) == (dev != "cpu")
         outs.append(out.to("cpu"))
+    _same(outs[1].a, outs[0].a)
+    _same(outs[1].b, outs[0].b)
+
+
+@pytest.mark.parametrize("name,method", [("TOY", "AP"), ("TOY_LMKCDEY", None)])
+def test_toy_dm_lmkcdey_gate_on_card_matches_cpu(name, method, cuda):
+    """TOY with method AP and TOY_LMKCDEY: keys and the whole AND gate on
+    the card (PyTorch ops around kernels 1 and 2) equal the plain CPU
+    pipeline byte for byte; the rotation kernels 3-5 launch 0 times."""
+    outs, keys = [], []
+    rng = np.random.default_rng(3)
+    m1, m2 = rng.integers(0, 2, size=(2, 64))
+    for dev in ("cpu", cuda):
+        ctx = BinFheContext.generate(name, method=method, device=dev)
+        sk = ctx.key_gen(1)
+        keys.append(ctx.bt_key_gen(sk, 2).to("cpu"))
+        key = keys[-1].to(dev)
+        ct1, ct2 = ctx.encrypt(sk, m1, 3), ctx.encrypt(sk, m2, 4)
+        before = launch_counts()
+        out = ctx.eval_bin_gate(key, "AND", ct1, ct2)
+        after = launch_counts()
+        np.testing.assert_array_equal(ctx.decrypt(sk, out).cpu().numpy(), m1 & m2)
+        for kernel in KERNEL_OF.values():
+            assert after[kernel] == before[kernel]
+        for kernel in ("ntt_forward", "ntt_inverse"):
+            assert (after[kernel] > before[kernel]) == (dev != "cpu")
+        outs.append(out.to("cpu"))
+    for got, want in zip(vars(keys[1]).values(), vars(keys[0]).values()):
+        if isinstance(want, torch.Tensor):
+            _same(got, want)
+    _same(keys[1].ksk.a, keys[0].ksk.a)
     _same(outs[1].a, outs[0].a)
     _same(outs[1].b, outs[0].b)

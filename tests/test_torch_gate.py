@@ -35,7 +35,8 @@ from fhe_tpu.tfhe import rgsw as j_rgsw
 import fhe_tpu_torch
 from fhe_tpu_torch import convert
 from fhe_tpu_torch.math import ntt as tntt
-from fhe_tpu_torch.tfhe import PARAM_SETS, BinFheContext, Gate, Method, lwe, make_params, rgsw
+from fhe_tpu_torch.tfhe import (PARAM_SETS, BinFheContext, Gate, LmkcdeyKey, Method, lwe,
+                                make_params, rgsw)
 
 VEC = os.path.join(os.path.dirname(__file__), "vectors")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -179,8 +180,11 @@ def test_method_mismatch_raises():
         make_params("STD128", Method.LMKCDEY)
     ctx = BinFheContext.generate("STD128_LMKCDEY", device="cpu")
     assert ctx.params.method == Method.LMKCDEY
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ctx.bt_key_gen(ctx.key_gen(0))
+    # the set's own key (Gaussian secret), with n cut to 8 to stay fast
+    ctx = dataclasses.replace(ctx, params=dataclasses.replace(ctx.params, n=8))
+    key = ctx.bt_key_gen(ctx.key_gen(0))
+    assert isinstance(key, LmkcdeyKey)
+    assert key.rgsw.shape == (8, 4, 2, 1024) and key.auto.shape == (11, 2, 2, 1024)
 
 
 def test_context_defaults_to_the_card():
