@@ -36,7 +36,19 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    single-gate latency and the share of the gate in kernels 1-2; TOY with
    method AP and TOY_LMKCDEY on the card byte-identical to the CPU, and an
    N = 2048 set (STD256Q_LMKCDEY) at batch 64;
-6. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+6. [rns], GINX on the 2-limb RNS ring (the sets with Q >= 2^31: PyTorch ops
+   around the limb-stacked NTT kernels): STD192 keyed at full width, AND,
+   NAND, XOR and CMUX on 4096 independent random bit pairs, a single-gate
+   AND and the batch API's ASYNC AND against the truth tables (0 wrong),
+   with the launch counters reset before and read after: n + 1 launches
+   of each limb-stacked kernel a gate and none of kernels 1-5; the
+   limb-stacked kernels byte-equal to their plain versions at every shape
+   these gates launch them at, and timed there; gates/s, single-gate
+   latency and the kernels' share of the gate; one AND at batch 64 on each
+   of the other eight RNS sets (0 wrong, launches counted, kernels checked
+   at their shapes), and on STD128Q_3/_4 the mod switch Q -> q_ks on the
+   card against Python integers;
+7. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
    the NTT kernels, and their plain versions, with a cold L2 (each call
@@ -81,7 +93,11 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                           "fhe_tpu/tfhe/boot_pallas.py:235"),
     "rotate_step_br": ("fhe_tpu_torch/csrc/blind_rotate.cuh",
                        "fhe_tpu/tfhe/boot_pallas.py:153"),
+    "ntt_forward_limbs": ("fhe_tpu_torch/csrc/ntt.cuh", "fhe_tpu/math/ntt_pallas.py:64"),
+    "ntt_inverse_limbs": ("fhe_tpu_torch/csrc/ntt.cuh", "fhe_tpu/math/ntt_pallas.py:79"),
 }
+# kernels 1-2 over stacked limbs: the RNS path's only kernels, on no other path
+LIMB_KERNELS = ("ntt_forward_limbs", "ntt_inverse_limbs")
 # the accumulator kernel each ntt_impl runs, and its launches per gate
 ACC_KERNEL = {None: "blind_rotate", "mega": "blind_rotate_mega", "fused": "rotate_step_br"}
 # the [acc] phase: (set, method) at full width; the batch for a method whose
@@ -95,6 +111,13 @@ SLOW_GATE_MS = 5000.0
 # run having more such outputs than check_gate allows
 LMK_PAST_RATE = 1e-4
 LMK_PAST_TAIL = 1e-3
+# the [rns] phase: the set at full width and batch BATCH, and the other RNS
+# sets at RNS_SMALL_BATCH; on FAULTY_SWITCH a 64-bit product v q_ks wraps
+RNS_SET = "STD192"
+RNS_OTHERS = ("STD192_3", "STD192_4", "STD192Q", "STD192Q_3", "STD192Q_4", "STD128Q_3",
+              "STD128Q_4", "TOY_RNS")
+RNS_SMALL_BATCH = 64
+FAULTY_SWITCH = ("STD128Q_3", "STD128Q_4")
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
@@ -141,6 +164,8 @@ def kernel_reports(log: str) -> list[tuple[str, int, int]]:
             args = ", ".join(re.findall(r"L[ib](\d+)E", mangled))
             kind = ("scan_kernel" if "scan_kernel" in mangled else
                     "step_kernel" if "step_kernel" in mangled else
+                    "ntt_forward_limbs_kernel" if "forward_limbs_kernel" in mangled else
+                    "ntt_inverse_limbs_kernel" if "inverse_limbs_kernel" in mangled else
                     "ntt_forward_kernel" if "forward_kernel" in mangled else
                     "ntt_inverse_kernel")
             name, spill = f"{kind}<{args}>" if args else kind, 0
@@ -299,7 +324,7 @@ def run_path(ctx, sk, key, bits, cts, impl):
     per_gate = ctx.params.n if impl == "fused" else 1
     for name in KERNELS:
         want = gates * per_gate if name == ACC_KERNEL[impl] else (
-            0 if name in ACC_KERNEL.values() else None)
+            0 if name in ACC_KERNEL.values() or name in LIMB_KERNELS else None)
         if want is None and launches[name] <= 0:
             fail(f"kernel {name} was not launched by the main path with ntt_impl={impl}")
         if want is not None and launches[name] != want:
@@ -426,10 +451,11 @@ def check_gate(what: str, ctx, sk, out, truth, ct1, ct2, bits1, bits2) -> np.nda
 
 
 def check_acc_launches(what: str, launches: dict, expected: collections.Counter) -> None:
-    """Kernels 3-5 not launched; kernels 1-2 exactly as often as expected."""
-    for name in ACC_KERNEL.values():
+    """Kernels 3-5 and the limb-stacked kernels not launched; kernels 1-2
+    exactly as often as expected."""
+    for name in (*ACC_KERNEL.values(), *LIMB_KERNELS):
         if launches[name]:
-            fail(f"{what}: rotation kernel {name} launched {launches[name]} times")
+            fail(f"{what}: kernel {name} launched {launches[name]} times")
     for name in ("ntt_forward", "ntt_inverse"):
         want = sum(n for (kernel, _), n in expected.items() if kernel == name)
         if launches[name] != want:
@@ -438,36 +464,51 @@ def check_acc_launches(what: str, launches: dict, expected: collections.Counter)
 
 
 def path_ntts(tag: str, dev, p, per_gate: collections.Counter, errors: Errors,
-              card: str | None = None) -> tuple[float, int]:
-    """Kernels 1 and 2 at every (kernel, rows) shape a DM or LMKCDEY gate
-    launches them at, byte-equal to their plain versions on random residues
-    mod Q.  With card, each is also timed (10 launches back to back), beside
-    its plain version's time and its bound; returns (kernel ms, launches) a
-    gate, 0.0 ms untimed."""
+              card: str | None = None) -> tuple[float, int, dict]:
+    """Kernels 1 and 2 (on a 2-limb RNS set, the limb-stacked ones) at every
+    (kernel, rows) shape a DM, LMKCDEY or RNS gate launches them at,
+    byte-equal to their plain versions on random residues.  With card, each
+    is also timed (10 launches back to back), beside its plain version's
+    time and its bound; returns (kernel ms, launches) a gate, 0.0 ms
+    untimed, and (kernel, rows) -> (ms, plain ms, bound ms, bound by)."""
+    from fhe_tpu_torch.lattice import rns
     from fhe_tpu_torch.math import ntt
-    plan = ntt.make_plan(p.N, p.Q, dev)
     gen = np.random.default_rng(SEED + 4)
-    kern_ms, kern_launches = 0.0, 0
+    if p.moduli_rns:
+        plan = rns.make_rns_plan(p.N, p.moduli_rns, dev)
+        ops = {"ntt_forward_limbs": (rns.ntt_forward, rns.forward_plain),
+               "ntt_inverse_limbs": (rns.ntt_inverse, rns.inverse_plain)}
+        make = lambda rows: torch.stack([_residues(gen, q, (rows, p.N), dev)
+                                         for q in p.moduli_rns], dim=1)
+        limbs, logN = plan.L, plan.plans[0].logN
+    else:
+        plan = ntt.make_plan(p.N, p.Q, dev)
+        ops = {"ntt_forward": (ntt.ntt_forward, ntt.forward_butterfly),
+               "ntt_inverse": (ntt.ntt_inverse, ntt.inverse_butterfly)}
+        make = lambda rows: _residues(gen, p.Q, (rows, p.N), dev)
+        limbs, logN = 1, plan.logN
+    kern_ms, kern_launches, timed = 0.0, 0, {}
     for (kernel, rows), n in sorted(per_gate.items()):
         if not n:
             continue
-        x = _residues(gen, p.Q, (rows, p.N), dev)
-        fn, plain = ((ntt.ntt_forward, ntt.forward_butterfly) if kernel == "ntt_forward" else
-                     (ntt.ntt_inverse, ntt.inverse_butterfly))
-        errors.compare(kernel, fn(plan, x), plain(plan, x), f"{tag} {kernel} [{rows}, {p.N}]")
+        x = make(rows)
+        fn, plain = ops[kernel]
+        shape = list(x.shape)
+        errors.compare(kernel, fn(plan, x), plain(plan, x), f"{tag} {kernel} {shape}")
         kern_launches += n
         if card is None:
             continue
         ms = time_ms(lambda: [fn(plan, x) for _ in range(10)], reps=3) / 10
         p_ms = time_ms(lambda: plain(plan, x), reps=3)
-        butterflies = p.N // 2 * plan.logN
-        muls = 3 * (butterflies + (p.N if kernel == "ntt_inverse" else 0)) * rows
+        butterflies = p.N // 2 * logN
+        muls = 3 * (butterflies + (p.N if "inverse" in kernel else 0)) * rows * limbs
         b_ms, b_by = bound(_nbytes(x, x, plan.fwd_w, plan.fwd_ws), muls, int_multiply_peak(dev))
-        print(f"{tag} {kernel} [{rows}, {p.N}]: {ms:.4f} ms a launch (10 back to back), "
+        print(f"{tag} {kernel} {shape}: {ms:.4f} ms a launch (10 back to back), "
               f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}, at {b_ms / ms:.3f} of it; "
               f"{n} launches a gate  ({card})")
         kern_ms += n * ms
-    return kern_ms, kern_launches
+        timed[(kernel, rows)] = (ms, p_ms, b_ms, b_by)
+    return kern_ms, kern_launches, timed
 
 
 def acc_method(dev, name: str, method, errors: Errors, card: str) -> None:
@@ -555,7 +596,7 @@ def acc_method(dev, name: str, method, errors: Errors, card: str) -> None:
     tv = boot.make_gate_test_vector(p, comb.b, boot.gate_constants(p, Gate.AND))
     rot_ms = time_ms(lambda: boot.run_accumulator(p, key, tv, comb.a), reps=3)
     path_ntts(tag, dev, p, per_gate[2], errors)             # the single gate's shapes
-    kern_ms, kern_launches = path_ntts(tag, dev, p, per_gate[0], errors, card)
+    kern_ms, kern_launches, _ = path_ntts(tag, dev, p, per_gate[0], errors, card)
     print(f"{tag} AND batch {batch}: {batch_ms:.3f} ms = {batch / batch_ms * 1e3:.1f} gates/s  "
           f"({card})")
     print(f"{tag} single-gate AND latency: {single_ms:.3f} ms  ({card})")
@@ -619,6 +660,149 @@ def acc_phase(dev, errors: Errors, card: str) -> None:
     acc_card_vs_cpu(dev)
     acc_n2048(dev, errors)
     torch.cuda.empty_cache()
+
+
+def rns_gate_ntts(p, B: int) -> collections.Counter:
+    """(kernel, rows) -> launches of the limb-stacked kernels in one RNS gate
+    at batch B: the test vector's forward and n digit forwards, n step
+    inverses and extraction's inverse."""
+    return collections.Counter({("ntt_forward_limbs", B): 1,
+                                ("ntt_forward_limbs", B * p.digits_g2): p.n,
+                                ("ntt_inverse_limbs", 2 * B): p.n + 1})
+
+
+def check_rns_launches(what: str, launches: dict, gates: int, p) -> None:
+    """n + 1 launches of each limb-stacked kernel a gate, none of the others."""
+    for name, count in launches.items():
+        want = gates * (p.n + 1) if name in LIMB_KERNELS else 0
+        if count != want:
+            fail(f"{what}: {count} {name} launches, expected {want}")
+    print(f"[rns] {what}: launches {launches}, as expected")
+
+
+def rns_main(dev, errors: Errors, card: str) -> tuple[dict, dict]:
+    """STD192 at full width: keygen, the counted gates against their truth
+    tables, the limb-stacked kernels at the gate's shapes against their
+    plain versions and timed, gates/s, latency and the kernels' share.
+    Returns the counted run's launches and the kernels' times at the
+    batch gate's digit forward and step inverse."""
+    from fhe_tpu_torch import BinFheContext, kernels
+    from fhe_tpu_torch.parallel import BatchFlags, eval_bin_gate_batch
+    t0 = time.perf_counter()
+    ctx = BinFheContext.generate(RNS_SET, device=dev)
+    p = ctx.params
+    tag = f"[rns] {RNS_SET}"
+    rng = np.random.default_rng(SEED)
+    sk = ctx.key_gen(rng)
+    key = ctx.bt_key_gen(sk, rng)
+    torch.cuda.synchronize()
+    print(f"{tag} (N = {p.N}, n = {p.n}, Q = {p.moduli_rns[0]} x {p.moduli_rns[1]}, dG2 = "
+          f"{p.digits_g2}) keygen (ksk {tuple(key.ksk.a.shape)}, bsk {tuple(key.bsk.shape)}) on "
+          f"{dev}: {time.perf_counter() - t0:.3f} s (host clock)")
+    m1, m2, sel = (rng.integers(0, 2, size=BATCH) for _ in range(3))
+    ct1, ct2, cs = (ctx.encrypt(sk, m, rng) for m in (m1, m2, sel))
+    one1, one2 = ctx.encrypt(sk, m1[:1], rng), ctx.encrypt(sk, m2[:1], rng)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = {f"AND batch {BATCH}": ctx.eval_bin_gate(key, "AND", ct1, ct2),
+            f"NAND batch {BATCH}": ctx.eval_bin_gate(key, "NAND", ct1, ct2),
+            f"XOR batch {BATCH}": ctx.eval_bin_gate(key, "XOR", ct1, ct2),
+            "single AND": ctx.eval_bin_gate(key, "AND", one1, one2),
+            f"CMUX batch {BATCH}": ctx.eval_cmux(key, ct1, ct2, cs)}
+    fut, res = eval_bin_gate_batch(ctx, key, "AND", ct1, ct2, BatchFlags.ASYNC)
+    if not res.success or res.processed != BATCH:
+        fail(f"{RNS_SET} eval_bin_gate_batch: {res}")
+    outs[f"batch API ASYNC AND batch {BATCH}"] = fut.result()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"{tag} 8 gates (first calls) in {time.perf_counter() - t0:.3f} s (host clock)")
+    truths = [m1 & m2, 1 - (m1 & m2), m1 ^ m2, (m1 & m2)[:1], np.where(sel == 1, m2, m1), m1 & m2]
+    for (what, out), truth in zip(outs.items(), truths):
+        if out.a.shape != truth.shape + (p.n,) or out.modulus != p.q:
+            fail(f"{tag} {what}: output ciphertext shape {tuple(out.a.shape)} mod {out.modulus}")
+        wrong = int((ctx.decrypt(sk, out).cpu().numpy() != truth).sum())
+        print(f"{tag} {what}: {wrong} wrong of {truth.size}")
+        if wrong:
+            fail(f"{tag} {what} does not decrypt to its truth table")
+    check_rns_launches(f"{RNS_SET}, 8 gates", launches, 8, p)
+
+    batch_ms = time_ms(lambda: ctx.eval_bin_gate(key, "AND", ct1, ct2), reps=3)
+    single_ms = time_ms(lambda: ctx.eval_bin_gate(key, "AND", one1, one2), reps=5)
+    path_ntts(tag, dev, p, rns_gate_ntts(p, 1), errors)          # the single gate's shapes
+    kern_ms, kern_launches, timed = path_ntts(tag, dev, p, rns_gate_ntts(p, BATCH), errors, card)
+    print(f"{tag} AND batch {BATCH}: {batch_ms:.3f} ms = {BATCH / batch_ms * 1e3:.1f} gates/s  "
+          f"({card})")
+    print(f"{tag} single-gate AND latency: {single_ms:.3f} ms  ({card})")
+    print(f"{tag} AND batch {BATCH}: limb-stacked kernels {kern_ms:.3f} ms ({kern_launches} "
+          f"launches) = {kern_ms / batch_ms:.3f} of the gate; the rest (PyTorch ops, key "
+          f"switch) {batch_ms - kern_ms:.3f} ms, {(batch_ms - kern_ms) / p.n:.3f} ms a step  "
+          f"({card})")
+    main_shapes = {"ntt_forward_limbs": BATCH * p.digits_g2, "ntt_inverse_limbs": 2 * BATCH}
+    return launches, {name: timed[(name, rows)] for name, rows in main_shapes.items()}
+
+
+def check_switch(dev, p) -> None:
+    """rgsw_rns.switch_to_qks on the card against Python integers, on the
+    edges and 4094 random v in [0, Q); also counts how many a uint64
+    product v q_ks, which wraps where Q q_ks passes 2^64, would switch
+    wrong."""
+    from fhe_tpu_torch.tfhe import rgsw_rns
+    gen = np.random.default_rng(SEED + 5)
+    v = [0, p.Q // 2, p.Q - 1] + [int(x) for x in gen.integers(0, p.Q, size=4093)]
+    got = rgsw_rns.switch_to_qks(p, torch.tensor(v, dtype=torch.int64, device=dev)).tolist()
+    want = [(x * p.q_ks + p.Q // 2) // p.Q % p.q_ks for x in v]
+    wrong = sum(g != w for g, w in zip(got, want))
+    u = np.array(v, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        wrapped = ((u * np.uint64(p.q_ks) + np.uint64(p.Q // 2)) // np.uint64(p.Q)
+                   % np.uint64(p.q_ks)).tolist()
+    print(f"[rns] {p.name} mod switch Q -> q_ks (Q q_ks has {(p.Q * p.q_ks).bit_length()} bits) "
+          f"on the card: {wrong} of {len(v)} differ from Python integers; a wrapping uint64 "
+          f"product gets {sum(g != w for g, w in zip(wrapped, want))} wrong")
+    if wrong:
+        fail(f"{p.name}: the mod switch Q -> q_ks is not exact")
+
+
+def rns_others(dev, errors: Errors) -> None:
+    """One AND at batch 64 on each other RNS set: 0 wrong, n + 1 launches of
+    each limb-stacked kernel, the kernels byte-equal at the gate's shapes."""
+    from fhe_tpu_torch import BinFheContext, kernels
+    for name in RNS_OTHERS:
+        t0 = time.perf_counter()
+        ctx = BinFheContext.generate(name, device=dev)
+        p = ctx.params
+        rng = np.random.default_rng(SEED)
+        sk = ctx.key_gen(rng)
+        key = ctx.bt_key_gen(sk, rng)
+        m1, m2 = rng.integers(0, 2, size=(2, RNS_SMALL_BATCH))
+        ct1, ct2 = ctx.encrypt(sk, m1, rng), ctx.encrypt(sk, m2, rng)
+        torch.cuda.synchronize()
+        key_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        ms, out = timed_once(lambda: ctx.eval_bin_gate(key, "AND", ct1, ct2))
+        launches = kernels.launch_counts()
+        wrong = int((ctx.decrypt(sk, out).cpu().numpy() != (m1 & m2)).sum())
+        print(f"[rns] {name} (N = {p.N}, n = {p.n}, Q = {p.moduli_rns[0]} x {p.moduli_rns[1]}, "
+              f"Bg = 2^{p.base_g.bit_length() - 1}, dG2 = {p.digits_g2}): keygen {key_s:.3f} s; "
+              f"AND batch {RNS_SMALL_BATCH}: {wrong} wrong, {ms:.3f} ms")
+        if wrong:
+            fail(f"{name} AND does not decrypt to its truth table")
+        check_rns_launches(f"{name}, 1 gate", launches, 1, p)
+        path_ntts(f"[rns] {name}", dev, p, rns_gate_ntts(p, RNS_SMALL_BATCH), errors)
+        if name in FAULTY_SWITCH:
+            check_switch(dev, p)
+        del key
+        torch.cuda.empty_cache()
+
+
+def rns_phase(dev, errors: Errors, card: str) -> tuple[dict, dict]:
+    t0 = time.perf_counter()
+    launches, times = rns_main(dev, errors, card)
+    torch.cuda.empty_cache()
+    rns_others(dev, errors)
+    print(f"[rns] the phase took {time.perf_counter() - t0:.3f} s (host clock)")
+    return launches, times
 
 
 def time_ms(fn, reps: int) -> float:
@@ -815,7 +999,10 @@ def main() -> int:
     check_kernels(dev, errors)
     ctx, key, cts, launches = main_path(dev)
     acc_phase(dev, errors, card)
+    rns_launches, rns_times = rns_phase(dev, errors, card)
+    launches.update({name: rns_launches[name] for name in LIMB_KERNELS})
     times = timings(dev, ctx, key, cts, errors, card)
+    times.update(rns_times)
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errors.max[name],
              "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],

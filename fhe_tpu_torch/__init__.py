@@ -11,8 +11,8 @@ Residues are stored as `torch.int32` (every modulus on the path is below
 reinterpret the words as uint32.
 """
 
-from . import convert, math, parallel, tfhe
+from . import convert, lattice, math, parallel, tfhe
 from .tfhe import BinFheContext, Gate, Method, make_params
 
 __all__ = ["BinFheContext", "Gate", "Method", "make_params", "convert",
-           "math", "parallel", "tfhe"]
+           "lattice", "math", "parallel", "tfhe"]

@@ -15,6 +15,7 @@ import torch
 from .tfhe.acc import DmKey, LmkcdeyKey
 from .tfhe.lwe import LweCiphertext, LweSecretKey, LweSwitchingKey
 from .tfhe.rgsw import BootstrapKey
+from .tfhe.rgsw_rns import RnsKey
 
 
 def _residues(x, name: str, device) -> torch.Tensor:
@@ -44,6 +45,15 @@ def bootstrap_key(bsk, ksk_a, ksk_b, device="cuda") -> BootstrapKey:
     """fhe_tpu BootstrapKey (bsk, ksk.a, ksk.b) -> BootstrapKey.  The
     fhe_tpu Shoup dual `bsk_shoup` is not carried: the port has none."""
     return BootstrapKey(bsk=_residues(bsk, "bsk", device), ksk=_ksk(ksk_a, ksk_b, device))
+
+
+def rns_bootstrap_key(bsk, ksk_a, ksk_b, device="cuda") -> RnsKey:
+    """fhe_tpu's RNS BootstrapKey (bsk [n, 2, dG2, 2, L, N], Montgomery
+    residues per limb; ksk.a, ksk.b) -> RnsKey."""
+    bsk = np.asarray(bsk)
+    if bsk.ndim != 6:
+        raise ValueError(f"an RNS bootstrap key is [n, 2, dG2, 2, L, N], got {bsk.shape}")
+    return RnsKey(bsk=_residues(bsk, "bsk", device), ksk=_ksk(ksk_a, ksk_b, device))
 
 
 def dm_key(bsk, ksk_a, ksk_b, device="cuda") -> DmKey:

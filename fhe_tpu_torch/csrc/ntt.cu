@@ -1,6 +1,7 @@
-// C entry points of the NTT kernels (ntt.cuh): each dispatches on N over
-// the shapes of ntt_shapes.h and on the arithmetic (lazy where q < 2^30,
-// chosen by the caller) to the instantiation compiled from ntt_inst.cu.
+// C entry points of the NTT kernels (ntt.cuh), single-modulus and
+// limb-stacked: each dispatches on N over the shapes of ntt_shapes.h and on
+// the arithmetic (lazy where every q < 2^30, chosen by the caller) to the
+// instantiation compiled from ntt_inst.cu.
 // An N with no instantiation returns cudaErrorInvalidValue without
 // launching; the Python wrappers (kernels/ntt.py) raise before they get
 // here.  Also the library's error strings.
@@ -59,6 +60,62 @@ int fhe_ntt_inverse(const void* x, void* y, const void* w, const void* ws, int r
   }
   FHE_NTT_SHAPES(FHE_INV_CASE)
 #undef FHE_INV_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"
+
+// The limb-stacked transforms of [rows, limbs, N] (w/ws the limbs' tables
+// stacked [limbs, N]).  scalars holds limbs entries each of q, then, for
+// the inverse, N^-1, its Shoup companion, w_1 N^-1 and its companion (as
+// fhe_ntt_inverse's), row by row: [1 or 5, limbs].  A limb count outside
+// 1..kMaxLimbs returns cudaErrorInvalidValue without launching.
+namespace {
+
+int limb_args(fhe::ntt::LimbArgs* args, const void* x, void* y, const void* w, const void* ws,
+              int rows, int limbs, const uint32_t* scalars, bool scale) {
+  if (limbs < 1 || limbs > fhe::ntt::kMaxLimbs) return static_cast<int>(cudaErrorInvalidValue);
+  *args = fhe::ntt::LimbArgs{static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
+                             static_cast<const uint32_t*>(w), static_cast<const uint32_t*>(ws),
+                             rows, limbs, {}, {}, {}, {}, {}};
+  uint32_t* rows_of[] = {args->q, args->ninv, args->ninv_s, args->w1_ninv, args->w1_ninv_s};
+  for (int k = 0; k < (scale ? 5 : 1); ++k) {
+    for (int l = 0; l < limbs; ++l) rows_of[k][l] = scalars[k * limbs + l];
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int fhe_ntt_forward_limbs(const void* x, void* y, const void* w, const void* ws, int rows,
+                          int limbs, int N, const uint32_t* scalars, int lazy, void* stream) {
+  fhe::ntt::LimbArgs args;
+  if (const int rc = limb_args(&args, x, y, w, ws, rows, limbs, scalars, false)) return rc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FHE_FWD_LIMBS_CASE(L)                                                       \
+  if (N == (1 << L)) {                                                              \
+    return lazy ? fhe::ntt::launch_forward_limbs<L, true>(args, s)                  \
+                : fhe::ntt::launch_forward_limbs<L, false>(args, s);                \
+  }
+  FHE_NTT_SHAPES(FHE_FWD_LIMBS_CASE)
+#undef FHE_FWD_LIMBS_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int fhe_ntt_inverse_limbs(const void* x, void* y, const void* w, const void* ws, int rows,
+                          int limbs, int N, const uint32_t* scalars, int lazy, void* stream) {
+  fhe::ntt::LimbArgs args;
+  if (const int rc = limb_args(&args, x, y, w, ws, rows, limbs, scalars, true)) return rc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FHE_INV_LIMBS_CASE(L)                                                       \
+  if (N == (1 << L)) {                                                              \
+    return lazy ? fhe::ntt::launch_inverse_limbs<L, true>(args, s)                  \
+                : fhe::ntt::launch_inverse_limbs<L, false>(args, s);                \
+  }
+  FHE_NTT_SHAPES(FHE_INV_LIMBS_CASE)
+#undef FHE_INV_LIMBS_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -36,6 +36,14 @@
 //   (x - y) w_1 N^-1, one Shoup product each.
 // - A round's twiddles are read once per item, through L1, a stage's run
 //   of consecutive entries in as few vector loads as it takes.
+//
+// The limb-stacked kernels (forward_limbs_kernel, inverse_limbs_kernel) run
+// the same rows on an RNS ring element [rows, L, N] (fhe_tpu/lattice/rns.py
+// ntt_forward / ntt_inverse, XLA there; fhe_tpu_torch/lattice/rns.py): one
+// launch for every limb, block (b, l) on P rows of limb l, with limb l's
+// modulus and scale from the argument struct and its table from the
+// stacked [L, N] tables.  The layout stays fhe_tpu's [..., L, N]: no
+// transpose to limb-major, whose copy would double the traffic.
 #pragma once
 
 #include <cstdint>
@@ -63,21 +71,24 @@ __device__ __forceinline__ int brev_bits(int x) {
   return static_cast<int>(__brev(static_cast<uint32_t>(x)) >> (32 - Bits));
 }
 
+// The inverse's N^-1 scale: N^-1 and w_1 N^-1, each with its Shoup companion.
+struct Scale {
+  uint32_t ninv, ninv_s, w1_ninv, w1_ninv_s;
+};
+
+// The forward transform of the block's P rows: this thread's row starts at
+// x (input) and y (output); rows past the end (valid false) load zeros,
+// store nothing and reach every barrier.
 template <int LogN, bool kLazy, bool kOutBr>
-__global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
-forward_kernel(const Args args) {
-  constexpr int N = 1 << LogN, G = kG<LogN>, P = kRows<LogN>;
+__device__ __forceinline__ void forward_rows(const uint32_t* x, uint32_t* y, bool valid,
+                                             uint32_t* buf, const Tables& t, uint32_t q) {
+  constexpr int G = kG<LogN>, P = kRows<LogN>;
   using R = NttRounds<LogN, kLazy, kThreads<LogN>>;
-  __shared__ uint32_t buf[P * N];
   const int r = threadIdx.x / G, g = threadIdx.x % G;
-  const size_t row = static_cast<size_t>(blockIdx.x) * P + r;
-  const bool valid = row < static_cast<size_t>(args.rows);
-  const uint32_t q = args.q;
-  const Tables t{args.w, args.ws, args.w, args.ws, nullptr};
 
   // first round (bits L-1..L-3) on positions g + j N/8, from global memory
   {
-    const uint32_t* src = args.x + row * N + g;
+    const uint32_t* src = x + g;
     uint32_t v[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) v[j] = valid ? src[j * G] : 0u;
@@ -99,33 +110,29 @@ forward_kernel(const Args args) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) v[k] = reduce(reduce(v[k], 2 * q), q);
   }
-  uint32_t* dst = args.y + row * N;
   if constexpr (kOutBr) {
-    *reinterpret_cast<uint4*>(dst + 8 * g) = make_uint4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<uint4*>(dst + 8 * g + 4) = make_uint4(v[4], v[5], v[6], v[7]);
+    *reinterpret_cast<uint4*>(y + 8 * g) = make_uint4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<uint4*>(y + 8 * g + 4) = make_uint4(v[4], v[5], v[6], v[7]);
   } else {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) dst[brev_bits<3>(k) * G + g] = v[k];
+    for (int k = 0; k < 8; ++k) y[brev_bits<3>(k) * G + g] = v[k];
   }
 }
 
+// The inverse transform of the block's P rows, as forward_rows.
 template <int LogN, bool kLazy>
-__global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
-inverse_kernel(const Args args) {
-  constexpr int N = 1 << LogN, G = kG<LogN>, P = kRows<LogN>;
+__device__ __forceinline__ void inverse_rows(const uint32_t* x, uint32_t* y, bool valid,
+                                             uint32_t* buf, const Tables& t, uint32_t q,
+                                             const Scale& scale) {
+  constexpr int G = kG<LogN>, P = kRows<LogN>;
   using R = NttRounds<LogN, kLazy, kThreads<LogN>>;
-  __shared__ uint32_t buf[P * N];
   const int r = threadIdx.x / G, g = threadIdx.x % G;
-  const size_t row = static_cast<size_t>(blockIdx.x) * P + r;
-  const bool valid = row < static_cast<size_t>(args.rows);
-  const uint32_t q = args.q;
-  const Tables t{args.w, args.ws, args.w, args.ws, nullptr};
 
   // first round (bits 0-2) on positions 8h..8h+7, h = brev(g): position
   // 8h + k holds slot brev3(k) N/8 + g of the natural-order input
   {
     const int h = brev_bits<LogN - 3>(g);
-    const uint32_t* src = args.x + row * N + g;
+    const uint32_t* src = x + g;
     uint32_t v[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) v[k] = valid ? src[brev_bits<3>(k) * G] : 0u;
@@ -149,13 +156,80 @@ inverse_kernel(const Args args) {
   ntt_round<false, LogN, LogN - 3, 2, kLazy, true>(lo, 0, t, q);
   ntt_round<false, LogN, LogN - 3, 2, kLazy, true>(hi, 1, t, q);
   const uint32_t lift = kLazy ? 2 * q : q;     // x - y + lift > 0
-  uint32_t* dst = args.y + row * N + g;
+  uint32_t* dst = y + g;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    dst[j * G] = reduce(shoup_lazy(lo[j] + hi[j], args.ninv, args.ninv_s, q), q);
+    dst[j * G] = reduce(shoup_lazy(lo[j] + hi[j], scale.ninv, scale.ninv_s, q), q);
     dst[(j + 4) * G] =
-        reduce(shoup_lazy(lo[j] - hi[j] + lift, args.w1_ninv, args.w1_ninv_s, q), q);
+        reduce(shoup_lazy(lo[j] - hi[j] + lift, scale.w1_ninv, scale.w1_ninv_s, q), q);
   }
+}
+
+template <int LogN, bool kLazy, bool kOutBr>
+__global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
+forward_kernel(const Args args) {
+  constexpr int N = 1 << LogN;
+  __shared__ uint32_t buf[kRows<LogN> * N];
+  const size_t row = static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kG<LogN>;
+  const Tables t{args.w, args.ws, args.w, args.ws, nullptr};
+  forward_rows<LogN, kLazy, kOutBr>(args.x + row * N, args.y + row * N,
+                                    row < static_cast<size_t>(args.rows), buf, t, args.q);
+}
+
+template <int LogN, bool kLazy>
+__global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
+inverse_kernel(const Args args) {
+  constexpr int N = 1 << LogN;
+  __shared__ uint32_t buf[kRows<LogN> * N];
+  const size_t row = static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kG<LogN>;
+  const Tables t{args.w, args.ws, args.w, args.ws, nullptr};
+  inverse_rows<LogN, kLazy>(args.x + row * N, args.y + row * N,
+                            row < static_cast<size_t>(args.rows), buf, t, args.q,
+                            Scale{args.ninv, args.ninv_s, args.w1_ninv, args.w1_ninv_s});
+}
+
+// Entry l of a per-limb scalar of the arguments, by constant indices (a
+// kernel parameter indexed by a variable would be copied to local memory).
+__device__ __forceinline__ uint32_t of_limb(const uint32_t (&v)[kMaxLimbs], int l) {
+  uint32_t out = v[0];
+#pragma unroll
+  for (int i = 1; i < kMaxLimbs; ++i) {
+    if (l == i) out = v[i];
+  }
+  return out;
+}
+
+// The limb-stacked kernels: block (b, l) transforms rows bP..bP+P-1 of limb
+// l, each at (row * limbs + l) N, with limb l's table, modulus and scale.
+// Only how a block finds its rows, modulus and tables differs from the
+// kernels above.
+template <int LogN, bool kLazy>
+__global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
+forward_limbs_kernel(const LimbArgs args) {
+  constexpr int N = 1 << LogN;
+  __shared__ uint32_t buf[kRows<LogN> * N];
+  const int l = blockIdx.y;
+  const size_t row = static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kG<LogN>;
+  const size_t at = (row * args.limbs + l) * N;
+  const Tables t{args.w + l * N, args.ws + l * N, args.w + l * N, args.ws + l * N, nullptr};
+  forward_rows<LogN, kLazy, false>(args.x + at, args.y + at,
+                                   row < static_cast<size_t>(args.rows), buf, t,
+                                   of_limb(args.q, l));
+}
+
+template <int LogN, bool kLazy>
+__global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
+inverse_limbs_kernel(const LimbArgs args) {
+  constexpr int N = 1 << LogN;
+  __shared__ uint32_t buf[kRows<LogN> * N];
+  const int l = blockIdx.y;
+  const size_t row = static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kG<LogN>;
+  const size_t at = (row * args.limbs + l) * N;
+  const Tables t{args.w + l * N, args.ws + l * N, args.w + l * N, args.ws + l * N, nullptr};
+  inverse_rows<LogN, kLazy>(args.x + at, args.y + at, row < static_cast<size_t>(args.rows), buf,
+                            t, of_limb(args.q, l),
+                            Scale{of_limb(args.ninv, l), of_limb(args.ninv_s, l),
+                                  of_limb(args.w1_ninv, l), of_limb(args.w1_ninv_s, l)});
 }
 
 template <int LogN, bool kLazy, bool kOutBr>
@@ -169,6 +243,20 @@ template <int LogN, bool kLazy>
 int launch_inverse(const Args& args, cudaStream_t stream) {
   const int blocks = (args.rows + kRows<LogN> - 1) / kRows<LogN>;
   if (blocks > 0) inverse_kernel<LogN, kLazy><<<blocks, kThreads<LogN>, 0, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LogN, bool kLazy>
+int launch_forward_limbs(const LimbArgs& args, cudaStream_t stream) {
+  const dim3 grid((args.rows + kRows<LogN> - 1) / kRows<LogN>, args.limbs);
+  if (grid.x > 0) forward_limbs_kernel<LogN, kLazy><<<grid, kThreads<LogN>, 0, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LogN, bool kLazy>
+int launch_inverse_limbs(const LimbArgs& args, cudaStream_t stream) {
+  const dim3 grid((args.rows + kRows<LogN> - 1) / kRows<LogN>, args.limbs);
+  if (grid.x > 0) inverse_limbs_kernel<LogN, kLazy><<<grid, kThreads<LogN>, 0, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,5 +47,28 @@ int launch_forward(const Args& args, cudaStream_t stream);
 template <int LogN, bool kLazy>
 int launch_inverse(const Args& args, cudaStream_t stream);
 
+// The limb-stacked transforms, x -> y (both [rows, limbs, N]): row r of
+// limb l is a residue mod q[l], transformed with that limb's table (w and
+// ws are the limbs' tables stacked [limbs, N], 16-byte aligned) and, for
+// the inverse, its scale (as Args's).  A block takes P rows of one limb.
+constexpr int kMaxLimbs = 4;  // kernels/ntt.py reads this line
+
+struct LimbArgs {
+  const uint32_t* x;
+  uint32_t* y;
+  const uint32_t* w;
+  const uint32_t* ws;
+  int rows, limbs;
+  uint32_t q[kMaxLimbs], ninv[kMaxLimbs], ninv_s[kMaxLimbs], w1_ninv[kMaxLimbs],
+      w1_ninv_s[kMaxLimbs];
+};
+
+// kLazy needs every limb below 2^30.
+template <int LogN, bool kLazy>
+int launch_forward_limbs(const LimbArgs& args, cudaStream_t stream);
+
+template <int LogN, bool kLazy>
+int launch_inverse_limbs(const LimbArgs& args, cudaStream_t stream);
+
 }  // namespace ntt
 }  // namespace fhe

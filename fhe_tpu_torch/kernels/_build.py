@@ -46,6 +46,8 @@ _U = ctypes.c_uint32
 _SIGNATURES = {
     "fhe_ntt_forward": (_P, _P, _P, _P, _I, _I, _U, _I, _I, _P),
     "fhe_ntt_inverse": (_P, _P, _P, _P, _I, _I, _U, _U, _U, _U, _U, _I, _P),
+    "fhe_ntt_forward_limbs": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P),
+    "fhe_ntt_inverse_limbs": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P),
     "fhe_ntt_rows_per_block": (_I,),
     "fhe_cggi_scan": (_P,) * 9 + (_I,) * 8 + (_U,) * 7 + (_P,),
     "fhe_cggi_steps": (_P,) * 10 + (_I,) * 7 + (_U,) * 7 + (_P,),
@@ -94,6 +96,14 @@ def ntt_sizes() -> tuple[int, ...]:
     (no build needed)."""
     text = (CSRC / "ntt_shapes.h").read_text()
     return tuple(1 << int(log_n) for log_n in re.findall(r"X\((\d+)\)", text))
+
+
+@functools.lru_cache(maxsize=None)
+def max_limbs() -> int:
+    """The most limbs a limb-stacked NTT launch takes, from
+    `csrc/ntt_launch.h` (no build needed)."""
+    text = (CSRC / "ntt_launch.h").read_text()
+    return int(re.search(r"constexpr int kMaxLimbs = (\d+);", text).group(1))
 
 
 def units() -> list[tuple[str, Path, tuple[str, ...]]]:

@@ -13,18 +13,27 @@ without a card.  They take any NTT prime q < 2^31: lazy butterflies where
 q < 2^30 (4q < 2^32), canonical ones above, chosen here from `plan.q`.
 Each wrapper checks its input, launches on the current stream without
 synchronising, and adds one to its entry of `LAUNCHES` per launch.
+
+`forward_limbs` / `inverse_limbs` run the same kernels' rows over an RNS
+ring element [rows, L, N] in one launch: row r, limb l, with limb l's
+modulus, table and scale (`lattice.rns.RnsPlan`), for 1 to `max_limbs()`
+limbs (`check_limbs` raises ValueError otherwise, without a card), lazy
+only where every limb is below 2^30.  Their plain version is the per-limb
+loop `lattice.rns.forward_plain` / `inverse_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from . import _build
+from ._build import max_limbs
 from ._build import ntt_sizes as sizes
 
-LAUNCHES = {"ntt_forward": 0, "ntt_inverse": 0}
+LAUNCHES = {"ntt_forward": 0, "ntt_inverse": 0, "ntt_forward_limbs": 0, "ntt_inverse_limbs": 0}
 LAZY_Q = 1 << 30
 
 
@@ -90,4 +99,75 @@ def inverse(plan, x: torch.Tensor) -> torch.Tensor:
                              int(plan.q < LAZY_Q), _build.stream_handle(x.device))
     _build.check(rc, "fhe_ntt_inverse")
     LAUNCHES["ntt_inverse"] += 1
+    return y
+
+
+def check_limbs(plan) -> None:
+    """ValueError unless the limb-stacked kernels take the RNS plan: an
+    instantiated N and 1 to max_limbs() limbs."""
+    check_n(plan.N)
+    if not 1 <= plan.L <= max_limbs():
+        raise ValueError(f"the limb-stacked NTT kernels take 1 to {max_limbs()} limbs, "
+                         f"got {plan.L} (csrc/ntt_launch.h kMaxLimbs)")
+
+
+def _check_limbs(plan, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"NTT kernel needs a CUDA tensor, got {x.device}")
+    check_limbs(plan)
+    if x.dtype != torch.int32:
+        raise TypeError(f"NTT kernel needs int32 residues, got {x.dtype}")
+    if x.dim() != 3 or tuple(x.shape[1:]) != (plan.L, plan.N):
+        raise ValueError(f"limb-stacked NTT kernel needs [rows, {plan.L}, {plan.N}], "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("NTT kernel needs a contiguous tensor")
+    tables = (plan.fwd_w, plan.fwd_ws, plan.inv_w, plan.inv_ws)
+    if any(t.device != x.device for t in tables):
+        raise ValueError(f"plan tables on {plan.fwd_w.device}, input on {x.device}")
+    if any(tuple(t.shape) != (plan.L, plan.N) or not t.is_contiguous() for t in tables):
+        raise ValueError(f"limb-stacked NTT kernel needs contiguous [{plan.L}, {plan.N}] tables")
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("NTT kernel needs 16-byte aligned plan tables")
+
+
+@functools.lru_cache(maxsize=None)
+def _limb_scalars(limbs: tuple, inverse: bool):
+    """The scalars of limbs ((N, q, psi, N^-1, its Shoup companion) each) as
+    the C entry points take them, [1 or 5, L] uint32: q, and for the
+    inverse N^-1, its companion and _scale's pair, limb by limb."""
+    _, qs, _, ninvs, ninv_ss = zip(*limbs)
+    rows = [qs]
+    if inverse:
+        pairs = [_scale(*limb[:4]) for limb in limbs]
+        rows += [ninvs, ninv_ss, [w for w, _ in pairs], [ws for _, ws in pairs]]
+    flat = [v for row in rows for v in row]
+    return (ctypes.c_uint32 * len(flat))(*flat)
+
+
+def _launch_limbs(entry: str, plan, x: torch.Tensor, w, ws, inverse: bool) -> torch.Tensor:
+    _check_limbs(plan, x)
+    y = torch.empty_like(x)
+    lazy = all(q < LAZY_Q for q in plan.moduli)
+    limbs = tuple((p.N, p.q, p.psi, p.ninv, p.ninv_s) for p in plan.plans)
+    fn = getattr(_build.library().cdll, entry)
+    rc = fn(x.data_ptr(), y.data_ptr(), w.data_ptr(), ws.data_ptr(), x.shape[0], plan.L, plan.N,
+            ctypes.cast(_limb_scalars(limbs, inverse), ctypes.c_void_p), int(lazy),
+            _build.stream_handle(x.device))
+    _build.check(rc, entry)
+    return y
+
+
+def forward_limbs(plan, x: torch.Tensor) -> torch.Tensor:
+    """[rows, L, N] int32 COEFFICIENT -> natural-order EVALUATION, each
+    limb mod its own prime (kernel)."""
+    y = _launch_limbs("fhe_ntt_forward_limbs", plan, x, plan.fwd_w, plan.fwd_ws, False)
+    LAUNCHES["ntt_forward_limbs"] += 1
+    return y
+
+
+def inverse_limbs(plan, x: torch.Tensor) -> torch.Tensor:
+    """[rows, L, N] int32 natural-order EVALUATION -> COEFFICIENT (kernel)."""
+    y = _launch_limbs("fhe_ntt_inverse_limbs", plan, x, plan.inv_w, plan.inv_ws, True)
+    LAUNCHES["ntt_inverse_limbs"] += 1
     return y

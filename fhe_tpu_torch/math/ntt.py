@@ -6,7 +6,9 @@ with psi = primes.root_of_unity(2N, q), the same root fhe_tpu picks: the
 bootstrap key is stored in EVAL form, so every EVAL value depends on it.
 
 `forward_butterfly` / `inverse_butterfly` are the plain PyTorch versions
-(Cooley-Tukey / Gentleman-Sande stages, exact int64 arithmetic).
+(Cooley-Tukey / Gentleman-Sande stages, exact int64 arithmetic: each
+butterfly's sum and difference reduced by one remainder, the values the
+kernels' Shoup products and reductions give).
 `ntt_forward` / `ntt_inverse` take them for a CPU tensor and launch the
 CUDA kernels (`kernels.ntt`) for a CUDA tensor; they raise on any other
 device and never fall back.
@@ -21,8 +23,7 @@ import numpy as np
 import torch
 
 from . import primes
-from .modmath import (add_mod, mont_constants, mont_mul, shoup_mul, shoup_precompute,
-                      sub_mod, to_mont as _to_mont)
+from .modmath import mont_constants, mont_mul, shoup_precompute, to_mont as _to_mont
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -105,10 +106,9 @@ def forward_butterfly(plan: NttPlan, x: torch.Tensor, out_br: bool = False) -> t
         m = 1 << s
         t = N >> (s + 1)
         yv = y.reshape(-1, m, 2, t)
-        w = w_all[m:2 * m].reshape(1, m, 1)
         u = yv[:, :, 0, :]
-        v = shoup_mul(yv[:, :, 1, :], w, q)
-        y = torch.stack([add_mod(u, v, q), sub_mod(u, v, q)], dim=2).reshape(-1, N)
+        v = yv[:, :, 1, :] * w_all[m:2 * m].reshape(1, m, 1) % q      # the Shoup product's value
+        y = torch.stack([u + v, u - v + q], dim=2).reshape(-1, N) % q
     if not out_br:
         y = y[:, _table(plan.br, x.device)]    # bit-reversed -> natural
     return y.reshape(*lead, N).to(x.dtype)
@@ -124,12 +124,11 @@ def inverse_butterfly(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
         h = N >> (s + 1)
         t = 1 << s
         yv = y.reshape(-1, h, 2, t)
-        w = w_all[h:2 * h].reshape(1, h, 1)
         u = yv[:, :, 0, :]
         v = yv[:, :, 1, :]
-        y = torch.stack([add_mod(u, v, q), shoup_mul(sub_mod(u, v, q), w, q)],
+        y = torch.stack([(u + v) % q, (u - v + q) * w_all[h:2 * h].reshape(1, h, 1) % q],
                         dim=2).reshape(-1, N)
-    y = shoup_mul(y, plan.ninv, q)
+    y = y * plan.ninv % q
     return y.reshape(*lead, N).to(x.dtype)
 
 

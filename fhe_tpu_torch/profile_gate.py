@@ -9,7 +9,10 @@ Makes the keys of --set (default STD128; --method AP for DM, the
 2. at --batch, the gate's stages one by one (CUDA events, median of 3):
    test vector, forward NTT, blind rotation (for DM and LMKCDEY the whole
    accumulator, its forward NTT included), extraction, and the three
-   parts of switch_ct_to_qn; and the peak device memory of one gate;
+   parts of switch_ct_to_qn (on a 2-limb RNS set, --set STD192 say:
+   the limb-stacked forward NTT, the RNS blind rotation, extraction with
+   the exact mod switch Q -> q_ks, key switch, mod switch to q); and the
+   peak device memory of one gate;
 3. one torch.profiler trace of the gate at --batch: the host wall time,
    the device busy time (the union of the CUDA kernel and memcpy/memset
    intervals), their ratio (busy share), the kernels by device time and
@@ -19,8 +22,8 @@ Makes the keys of --set (default STD128; --method AP for DM, the
    launches, with the ciphertexts per block (C) that the wrappers choose.
 
 Every line carries the card's name and power limit.  PERF.md's tables of
-where the AP and LMKCDEY gates' time goes come from
-`--set STD128_AP --method AP` and `--set STD128_LMKCDEY`.
+where the AP, LMKCDEY and RNS gates' time goes come from
+`--set STD128_AP --method AP`, `--set STD128_LMKCDEY` and `--set STD192`.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ import torch
 
 from . import BinFheContext
 from .math import ntt as nttmod
-from .tfhe import boot, lwe, rgsw
+from .lattice import rns
+from .tfhe import boot, lwe, rgsw, rgsw_rns
 from .tfhe.params import Gate
 
 SWEEP = (1, 8, 64, 256, 1024, 4096, 8192)
@@ -71,11 +75,38 @@ def sweep(ctx, sk, key, rng, card: str) -> None:
         print(f"[sweep] AND batch {batch}: {ms:.3f} ms = {batch / ms * 1e3:.1f} gates/s  ({card})")
 
 
-def stages(ctx, sk, key, rng, batch: int, card: str):
-    """The gate's stages, each timed alone on the inputs the gate gives it."""
+def rns_parts(p, key, comb, device) -> dict:
+    """The RNS gate's stages (rgsw_rns.eval_bin_gate_rns), each on the
+    inputs the gate gives it."""
+    plan = rns.make_rns_plan(p.N, p.moduli_rns, device)
+    tv = rgsw_rns._gate_test_vector_rns(p, comb.b, Gate.AND)
+    acc = rgsw_rns.initial_acc_rns(p, tv)
+    rot = rgsw_rns.blind_rotate_rns(p, key.bsk, acc, comb.a)
+    offset = p.Q // 8 + 1
+    ext = rgsw_rns.extract_switch_rns(p, rot, offset)
+    ks = lwe.key_switch(p, key.ksk, ext)
+    return {
+        "test vector": lambda: rgsw_rns._gate_test_vector_rns(p, comb.b, Gate.AND),
+        "forward NTT (limb-stacked kernel)": lambda: rns.ntt_forward(plan, tv),
+        "blind rotation (PyTorch ops around the limb-stacked kernels)":
+            lambda: rgsw_rns.blind_rotate_rns(p, key.bsk, acc, comb.a),
+        "extraction + exact mod switch Q -> q_ks (limb-stacked inverse NTT kernel)":
+            lambda: rgsw_rns.extract_switch_rns(p, rot, offset),
+        "key switch": lambda: lwe.key_switch(p, key.ksk, ext),
+        "mod switch q_ks -> q": lambda: lwe.mod_switch(ks, p.q),
+    }
+
+
+def stages(ctx, sk, key, rng, batch: int):
+    """Two ciphertext batches and the gate's stages on them, each a call
+    on the inputs the gate gives it."""
     p = ctx.params
     ct1 = ctx.encrypt(sk, rng.integers(0, 2, size=batch), rng)
     ct2 = ctx.encrypt(sk, rng.integers(0, 2, size=batch), rng)
+    if p.moduli_rns:
+        comb = lwe.add(ct1, ct2)
+        parts = {"lwe add": lambda: lwe.add(ct1, ct2), **rns_parts(p, key, comb, ctx.device)}
+        return ct1, ct2, parts
     plan = nttmod.make_plan(p.N, p.Q, ctx.device)
     comb = lwe.add(ct1, ct2)
     consts = boot.gate_constants(p, Gate.AND)
@@ -100,6 +131,12 @@ def stages(ctx, sk, key, rng, batch: int, card: str):
         "key switch": lambda: lwe.key_switch(p, key.ksk, ms1),
         "mod switch q_ks -> q": lambda: lwe.mod_switch(ks, p.q),
     }
+    return ct1, ct2, parts
+
+
+def time_stages(ctx, key, ct1, ct2, parts: dict, batch: int, card: str) -> None:
+    """Each stage timed alone, their sum beside the whole gate, and the
+    gate's peak device memory."""
     total = 0.0
     for name, fn in parts.items():
         ms = time_ms(fn)
@@ -116,7 +153,6 @@ def stages(ctx, sk, key, rng, batch: int, card: str):
     peak = torch.cuda.max_memory_allocated(ctx.device)
     print(f"[stage] batch {batch} one AND gate: peak device memory {peak / 2**30:.3f} GiB, "
           f"{(peak - base) / 2**30:.3f} GiB above the keys and inputs  ({card})")
-    return ct1, ct2
 
 
 def _union_us(intervals) -> float:
@@ -195,7 +231,8 @@ def main() -> None:
     sk = ctx.key_gen(rng)
     key = ctx.bt_key_gen(sk, rng)
     sweep(ctx, sk, key, rng, card)
-    ct1, ct2 = stages(ctx, sk, key, rng, args.batch, card)
+    ct1, ct2, parts = stages(ctx, sk, key, rng, args.batch)
+    time_stages(ctx, key, ct1, ct2, parts, args.batch, card)
     trace(ctx, key, ct1, ct2, args.batch, card)
     if isinstance(key, rgsw.BootstrapKey):
         rotation(ctx, key, rng, card)

@@ -6,9 +6,11 @@ Python data, keys and ciphertexts are dataclasses of tensors on
 device, such as "cpu"), and every Eval* accepts batched ciphertexts.
 `ntt_impl` selects the GINX accumulator as in fhe_tpu
 (`boot.run_accumulator`).  All three blind-rotation methods are ported
-(GINX/CGGI, AP/DM and LMKCDEY) with a single-limb ring modulus; the RNS
-ring and the other unported paths raise NotImplementedError naming their
-ROADMAP.md item.
+(GINX/CGGI, AP/DM and LMKCDEY) with a single-limb ring modulus, and GINX on
+the 2-limb RNS ring (the sets with Q >= 2^31, `rgsw_rns`), where
+`ntt_impl` changes nothing, as in fhe_tpu.  What fhe_tpu has no RNS path
+for raises a named ValueError there (`_single_limb_only`); the unported
+paths raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import acc, boot, lwe, rgsw
+from . import acc, boot, lwe, rgsw, rgsw_rns
 from .boot import Key
 from .params import Gate, Method, TfheParams, make_params
 
@@ -50,9 +52,12 @@ class BinFheContext:
         return cls(params=make_params(param_set, method), device=torch.device(device),
                    ntt_impl=ntt_impl)
 
-    def _require_ported(self) -> None:
+    def _single_limb_only(self, what: str) -> None:
+        """ValueError for what has no 2-limb RNS ring path, here or in
+        fhe_tpu (its rgsw_rns runs GINX keys and two-input gates only)."""
         if self.params.moduli_rns:
-            _unported(f"the RNS ring of {self.params.name}", "item 7b, tfhe/rgsw_rns.py")
+            raise ValueError(f"{self.params.name}: {what} has no path on the 2-limb RNS ring "
+                             f"(Q = q1 q2 >= 2^31); fhe_tpu's rgsw_rns has none either")
 
     # -- key generation -----------------------------------------------------
     def key_gen(self, rng: np.random.Generator | int = 0) -> lwe.LweSecretKey:
@@ -63,18 +68,22 @@ class BinFheContext:
         return lwe.keygen(self.params, _rng(rng), dim=self.params.N, device=self.device)
 
     def bt_key_gen(self, sk: lwe.LweSecretKey, rng: np.random.Generator | int = 0,
-                   sk_n: lwe.LweSecretKey | None = None) -> Key:
+                   sk_n: lwe.LweSecretKey | None = None) -> Key | rgsw_rns.RnsKey:
         """BTKeyGen: draws sk_n (unless given), then the switching key, then
-        the bootstrap key of the context's method, in fhe_tpu's order.  A
-        set LMKCDEY cannot key raises ValueError before any draw."""
+        the bootstrap key of the context's method (on a 2-limb RNS ring, an
+        `rgsw_rns.RnsKey`), in fhe_tpu's order.  A set LMKCDEY cannot key,
+        and method AP on an RNS ring, raise ValueError before any draw."""
         p = self.params
         if p.method == Method.LMKCDEY:
             acc.check_lmkcdey(p)
-        self._require_ported()
+        if p.method != Method.GINX:
+            self._single_limb_only(f"method {p.method.value}")
         rng = _rng(rng)
         if sk_n is None:
             sk_n = lwe.keygen(p, rng, dim=p.N, device=self.device)
         ksk = lwe.key_switch_gen(p, sk, sk_n, rng)
+        if p.moduli_rns:
+            return rgsw_rns.RnsKey(bsk=rgsw_rns.bsk_gen_rns(p, sk, sk_n, rng), ksk=ksk)
         if p.method == Method.GINX:
             return rgsw.BootstrapKey(bsk=rgsw.bsk_gen(p, sk, sk_n, rng), ksk=ksk)
         if p.method == Method.AP:
@@ -104,13 +113,16 @@ class BinFheContext:
         gate = Gate[gate] if isinstance(gate, str) else gate
         if gate == Gate.CMUX:
             raise ValueError("CMUX takes 3 inputs")
-        self._require_ported()
+        if self.params.moduli_rns:
+            if extended:
+                self._single_limb_only("extended=True (an output mod Q)")
+            return rgsw_rns.eval_bin_gate_rns(self.params, key, gate, ct1, ct2)
         return boot.eval_bin_gate(self.params, key, gate, ct1, ct2, extended, self.ntt_impl)
 
     def eval_bin_gate_multi(self, key: Key, gate: Gate | str, cts,
                             extended: bool = False) -> lwe.LweCiphertext:
         gate = Gate[gate] if isinstance(gate, str) else gate
-        self._require_ported()
+        self._single_limb_only("eval_bin_gate_multi")
         return boot.eval_bin_gate_multi(self.params, key, gate, list(cts), extended,
                                         self.ntt_impl)
 
@@ -148,7 +160,7 @@ class BinFheContext:
 
     def bootstrap(self, key: Key, ct: lwe.LweCiphertext,
                   extended: bool = False) -> lwe.LweCiphertext:
-        self._require_ported()
+        self._single_limb_only("bootstrap")
         return boot.bootstrap(self.params, key, ct, extended, self.ntt_impl)
 
     # -- functional bootstrapping -------------------------------------------

@@ -74,15 +74,7 @@ def bsk_gen(params: TfheParams, sk: lwe.LweSecretKey, sk_n: lwe.LweSecretKey,
     dg2 = params.digits_g2
     a = rng.integers(0, Q, size=(n, 2, dg2, N), dtype=np.int64)
     e = lwe._sample_error(rng, (n, 2, dg2, N), params.std_dev) % Q
-    s = sk.s.cpu().numpy().astype(np.int64)
-    if np.abs(s).max() > 1:
-        # the two-column CMUX key can only represent ternary secrets; a
-        # Gaussian secret (e.g. STD128_LMKCDEY's) would silently lose
-        # every |s_i| >= 2 coefficient
-        raise ValueError(
-            "GINX bootstrap keys require a ternary secret "
-            f"(got |s| up to {int(np.abs(s).max())}); Gaussian-secret "
-            "paramsets must use method=LMKCDEY")
+    s = ternary_secret(sk)
     dev = sk.s.device
     plan = nttmod.make_plan(N, Q, dev)
     m = torch.from_numpy(np.stack([(s == 1), (s == -1)], axis=1).astype(np.int64)).to(dev)
@@ -101,6 +93,20 @@ def bsk_gen(params: TfheParams, sk: lwe.LweSecretKey, sk_n: lwe.LweSecretKey,
     col1 = add_mod(col1, torch.where(row_odd == 1, msg, 0), Q)
     bsk = torch.stack([col0, col1], dim=3).to(torch.int32)   # [n, 2, dg2, 2, N]
     return nttmod.to_mont(plan, bsk)
+
+
+def ternary_secret(sk: lwe.LweSecretKey) -> np.ndarray:
+    """sk.s as int64 numpy; ValueError unless it is ternary."""
+    s = sk.s.cpu().numpy().astype(np.int64)
+    if np.abs(s).max() > 1:
+        # the two-column CMUX key can only represent ternary secrets; a
+        # Gaussian secret (e.g. STD128_LMKCDEY's) would silently lose
+        # every |s_i| >= 2 coefficient
+        raise ValueError(
+            "GINX bootstrap keys require a ternary secret "
+            f"(got |s| up to {int(np.abs(s).max())}); Gaussian-secret "
+            "paramsets must use method=LMKCDEY")
+    return s
 
 
 def signed_digit_decompose(params: TfheParams, c: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ from fhe_tpu_torch.kernels import blind_rotate as kbr
 from fhe_tpu_torch.kernels import blind_rotate_br as kbr_br
 from fhe_tpu_torch.kernels import launch_counts
 from fhe_tpu_torch.kernels import ntt as kntt
+from fhe_tpu_torch.lattice import rns
 from fhe_tpu_torch.math import ntt, primes
 from fhe_tpu_torch.tfhe import boot, boot_pallas, make_params, rgsw
 
@@ -222,3 +223,78 @@ def test_toy_dm_lmkcdey_gate_on_card_matches_cpu(name, method, cuda):
     _same(keys[1].ksk.a, keys[0].ksk.a)
     _same(outs[1].a, outs[0].a)
     _same(outs[1].b, outs[0].b)
+
+
+# the limbs of STD192 and STD128Q_3 (a 26-bit limb), each NTT primes for
+# N <= 2048, and a third limb above 2^30 (canonical arithmetic)
+LIMBS = {"STD192": (520193, 495617), "STD128Q_3": (33550337, 67104769)}
+
+
+@pytest.mark.parametrize("N", [1024, 2048])
+@pytest.mark.parametrize("L", [1, 2, 3])
+@pytest.mark.parametrize("name", sorted(LIMBS))
+def test_limb_stacked_ntt_kernels_match_plain(name, L, N, cuda, gen):
+    """The limb-stacked kernels against their plain per-limb loop, byte for
+    byte, with 1, 3 and P x SMs + 1 rows of L limbs (L = 3 adds a limb above
+    2^30, so the launch takes the canonical arithmetic), and the round trip."""
+    moduli = (LIMBS[name] + (primes.last_prime(31, 4096),))[:L]
+    plan = rns.make_rns_plan(N, moduli, cuda)
+    before = launch_counts()
+    for rows in (1, 3, kntt.rows_per_block(N) * _sm_count(cuda) + 1):
+        x = torch.stack([_residues(gen, q, (rows, N), cuda) for q in moduli], dim=1)
+        f = rns.ntt_forward(plan, x)
+        _same(f, rns.forward_plain(plan, x))
+        i = rns.ntt_inverse(plan, f)
+        _same(i, rns.inverse_plain(plan, f))
+        _same(i, x)
+    after = launch_counts()
+    assert after["ntt_forward_limbs"] - before["ntt_forward_limbs"] == 3
+    assert after["ntt_inverse_limbs"] - before["ntt_inverse_limbs"] == 3
+    assert after["ntt_forward"] == before["ntt_forward"]
+
+
+def test_limb_stacked_ntt_kernels_reject_too_many_limbs(cuda):
+    """More limbs than csrc/ntt_launch.h's kMaxLimbs: ValueError before any
+    launch; so is a wrong limb axis."""
+    L = kntt.max_limbs() + 1
+    moduli = tuple(primes.last_prime(bits, 2048) for bits in range(24, 24 + L))
+    plan = rns.make_rns_plan(1024, moduli, cuda)
+    before = launch_counts()
+    for fn in (rns.ntt_forward, rns.ntt_inverse):
+        with pytest.raises(ValueError, match=f"1 to {L - 1} limbs, got {L}"):
+            fn(plan, torch.zeros(2, L, 1024, dtype=torch.int32, device=cuda))
+        with pytest.raises(ValueError, match="limbs|L, N|1024"):
+            fn(rns.make_rns_plan(1024, moduli[:2], cuda),
+               torch.zeros(2, 3, 1024, dtype=torch.int32, device=cuda))
+    assert launch_counts() == before
+
+
+def test_toy_rns_gate_on_card_matches_cpu(cuda):
+    """TOY_RNS: keys and the whole AND and XOR gates on the card (PyTorch ops
+    around the limb-stacked kernels) equal the plain CPU pipeline byte for
+    byte; n + 1 launches of each limb-stacked kernel a gate, none of the
+    others."""
+    outs, keys = [], []
+    rng = np.random.default_rng(5)
+    m1, m2 = rng.integers(0, 2, size=(2, 64))
+    for dev in ("cpu", cuda):
+        ctx = BinFheContext.generate("TOY_RNS", device=dev)
+        sk = ctx.key_gen(1)
+        keys.append(ctx.bt_key_gen(sk, 2).to("cpu"))
+        key = keys[-1].to(dev)
+        ct1, ct2 = ctx.encrypt(sk, m1, 3), ctx.encrypt(sk, m2, 4)
+        before = launch_counts()
+        out = [ctx.eval_bin_gate(key, gate, ct1, ct2) for gate in ("AND", "XOR")]
+        after = launch_counts()
+        np.testing.assert_array_equal(ctx.decrypt(sk, out[0]).cpu().numpy(), m1 & m2)
+        np.testing.assert_array_equal(ctx.decrypt(sk, out[1]).cpu().numpy(), m1 ^ m2)
+        n = ctx.params.n
+        for kernel in after:
+            want = 2 * (n + 1) if kernel.endswith("_limbs") and dev != "cpu" else 0
+            assert after[kernel] - before[kernel] == want, kernel
+        outs.append([o.to("cpu") for o in out])
+    _same(keys[1].bsk, keys[0].bsk)
+    _same(keys[1].ksk.a, keys[0].ksk.a)
+    for got, want in zip(outs[1], outs[0]):
+        _same(got.a, want.a)
+        _same(got.b, want.b)
