@@ -48,7 +48,30 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    of the other eight RNS sets (0 wrong, launches counted, kernels checked
    at their shapes), and on STD128Q_3/_4 the mod switch Q -> q_ks on the
    card against Python integers;
-7. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+7. [func], functional bootstrapping and public-key mode on the main path's
+   STD128 key (no second keygen for the first): once per accumulator, on
+   4096 ciphertexts unless named, eval_func of random m in Z_4 with an
+   arbitrary LUT (2 bootstraps at ct_mod 2q = 2N), a negacyclic one (1 at
+   q) and a periodic one (2 at q), eval_floor at 2q and eval_sign at 2q
+   (its last bootstrap at ct_mod q/2), a single eval_func and the batch
+   API's ASYNC eval_func: 0 wrong against their plaintext models; then the
+   noise-limited calls, eval_floor at 8q (p = 8), eval_sign at 16q (5
+   bootstraps) and at 8q on 64, eval_decomp at 4q = q^2/(2 beta), whose
+   wrong outputs are counted and which must equal the plain pipeline (the
+   plain rotation on the card) byte for byte, the floor's wrong outputs
+   lying where its middle phase leaves [q/4, 3q/4); the launch counters
+   reset before and read after each accumulator's run (per bootstrap one
+   launch of kernel 3 or 4, or n of kernel 5, and one each of kernels 1
+   and 2; no other); the three accumulators' outputs must be identical;
+   kernels 3-5 byte-equal to their plain versions at every LWE modulus the
+   phase rotates at (2N, N, N/2); EvalFunc and EvalSign ciphertexts/s at
+   batch 4096 and the single EvalFunc's latency per accumulator, and the
+   rotation kernels timed at ct_mod 2N beside q; then key_gen_pair, a
+   bootstrap key on its secret keys, encrypt_pk of 4096 random bits
+   (decrypted under the dimension-N key, and with the ksk switch to
+   (n, q)) and an AND of the switched ciphertexts with secret-key ones,
+   against the truth table;
+8. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
    the NTT kernels, and their plain versions, with a cold L2 (each call
@@ -69,6 +92,7 @@ the card's `nvidia-smi` name and power limit, then
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -118,6 +142,12 @@ RNS_OTHERS = ("STD192_3", "STD192_4", "STD192Q", "STD192Q_3", "STD192Q_4", "STD1
               "STD128Q_4", "TOY_RNS")
 RNS_SMALL_BATCH = 64
 FAULTY_SWITCH = ("STD128Q_3", "STD128Q_4")
+# the [func] phase: f: Z_4 -> Z_4 of each LUT kind (f(m + 2) = -f(m), f(m + 2)
+# = f(m), neither; (m^2 + 1) mod 4 is periodic), and the number of eval_sign
+# inputs at 8q
+FUNC_LUTS = {"arbitrary": lambda m, p: (m + 1) % p, "negacyclic": lambda m, p: m ** 3 % p,
+             "periodic": lambda m, p: (m * m + 1) % p}
+SIGN_8Q_BATCH = 64
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
@@ -360,7 +390,7 @@ def main_path(dev):
     print(f"[main] peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     path_launches = {name: launches[None][name] for name in ("ntt_forward", "ntt_inverse")}
     path_launches.update({name: launches[impl][name] for impl, name in ACC_KERNEL.items()})
-    return ctx, key, cts, path_launches
+    return ctx, sk, key, cts, path_launches
 
 
 def comb_mask(ct1, ct2) -> np.ndarray:
@@ -805,6 +835,327 @@ def rns_phase(dev, errors: Errors, card: str) -> tuple[dict, dict]:
     return launches, times
 
 
+def decomp_digits(m: np.ndarray, P: int, mod: int, q: int, p: int, beta: int = 128) -> list:
+    """A plaintext rendering of eval_decomp's loop on the noise-free phase
+    m mod/P: each digit is the phase mod q decrypted at p (set_modulus),
+    the floor clears it, and the mod switch scales by 2 beta / q; the last
+    is the remainder decrypted at p."""
+    v = m.astype(np.int64) * (mod // P)
+    digits = []
+    while mod > q:
+        digits.append(v % q * p // q % p)
+        v = v - v % q
+        new = mod * 2 * beta // q
+        v, mod = v * new // mod, new
+    digits.append(v * p // mod % p)
+    return digits
+
+
+def check_func_kernels(dev, p, errors: Errors) -> None:
+    """Kernels 3-5 byte-equal to their plain versions with the mask mod
+    each LWE modulus the [func] phase rotates at (2N, N, N/2), at STD128's
+    shape, batch 1, 8 and 4097, random keys of 16 steps."""
+    from fhe_tpu_torch.tfhe import boot, boot_pallas, rgsw
+    rng = np.random.default_rng(SEED + 7)
+    for q_lwe in (2 * p.N, p.N, p.N // 2):
+        for B in (1, 8, 4097):
+            acc = _residues(rng, p.Q, (B, 2, p.N), dev)
+            bsk = _residues(rng, p.Q, (16, 2, p.digits_g2, 2, p.N), dev)
+            a = _residues(rng, q_lwe, (B, 16), dev)
+            what = f"STD128 B={B} steps=16 q_lwe={q_lwe} random key"
+            errors.compare("blind_rotate",
+                           boot.blind_rotate(p, rgsw.BootstrapKey(bsk, None), acc, a, q_lwe),
+                           boot.blind_rotate_plain(p, bsk, acc, a, q_lwe), f"blind_rotate {what}")
+            want = boot_pallas.blind_rotate_mega_plain(p, bsk, acc, a, q_lwe)
+            errors.compare("blind_rotate_mega",
+                           boot_pallas.blind_rotate_mega(p, bsk, acc, a, q_lwe), want,
+                           f"blind_rotate_mega {what}")
+            errors.compare("rotate_step_br", boot_pallas.blind_rotate_fused(p, bsk, acc, a, q_lwe),
+                           want, f"rotate_step_br x 16 launches (blind_rotate_fused) {what}")
+    torch.cuda.synchronize()
+
+
+def func_cells(ctx, key, inp: dict) -> list:
+    """The [func] phase's calls: (what, call, plaintext model of each output,
+    output modulus, decryption p, bootstraps, noise-limited).  A call
+    returns one ciphertext or a list (eval_decomp's digits).  Noise-limited
+    calls run where STD128's bootstrap noise, scaled to the ciphertext's
+    modulus, is comparable to the beta = q/8 margin of EvalFloor's middle
+    step (PERF.md §6; ROADMAP.md queue 3): there some outputs are wrong in
+    fhe_tpu too, and the card is held to the plain pipeline instead of 0
+    wrong."""
+    from fhe_tpu_torch.parallel import BatchFlags, eval_func_batch
+    q, B = ctx.params.q, BATCH
+    luts = {kind: ctx.generate_lut(f, 4) for kind, f in FUNC_LUTS.items()}
+    m4, m2, m8, ms, m16 = inp["m4"], inp["m2"], inp["m8"], inp["msign"], inp["m16"]
+
+    def batch_api():
+        fut, res = eval_func_batch(ctx, key, inp["ct4"], luts["arbitrary"], BatchFlags.ASYNC)
+        if not res.success or res.processed != B:
+            fail(f"eval_func_batch with ntt_impl={ctx.ntt_impl}: {res}")
+        return fut.result()
+
+    return [
+        *[(f"eval_func {kind} batch {B}", lambda lut=lut: ctx.eval_func(key, inp["ct4"], lut),
+           [FUNC_LUTS[kind](m4, 4)], q, 4, {"negacyclic": 1}.get(kind, 2), False)
+          for kind, lut in luts.items()],
+        (f"eval_floor 2q batch {B}", lambda: ctx.eval_floor(key, inp["floor2"]), [m2], 2 * q, 2,
+         2, False),
+        (f"eval_sign 2q batch {B}", lambda: ctx.eval_sign(key, inp["sign2"]), [ms[:B] >= 4], q, 2,
+         3, False),
+        ("single eval_func arbitrary", lambda: ctx.eval_func(key, inp["one"], luts["arbitrary"]),
+         [FUNC_LUTS["arbitrary"](m4[:1], 4)], q, 4, 2, False),
+        (f"eval_func_batch ASYNC arbitrary batch {B}", batch_api,
+         [FUNC_LUTS["arbitrary"](m4, 4)], q, 4, 2, False),
+        (f"eval_floor 8q batch {B}", lambda: ctx.eval_floor(key, inp["floor8"]), [m8], 8 * q, 8,
+         2, True),
+        (f"eval_sign 16q batch {B}", lambda: ctx.eval_sign(key, inp["sign16"]), [ms[:B] >= 4], q,
+         2, 5, True),
+        (f"eval_sign 8q batch {SIGN_8Q_BATCH}", lambda: ctx.eval_sign(key, inp["sign8"]),
+         [ms[B:] >= 4], q, 2, 5, True),
+        (f"eval_decomp 4q batch {B}", lambda: ctx.eval_decomp(key, inp["decomp"]),
+         decomp_digits(m16, 16, 4 * q, q, 4), q, 4, 2, True),
+    ]
+
+
+def func_run(ctx, sk, key, inp: dict, impl) -> tuple[dict, dict]:
+    """One accumulator's counted run of the [func] phase: launches per
+    bootstrap exact, every output against its plaintext model (0 wrong
+    where the call is not noise-limited).  Returns the outputs by name and
+    the launches."""
+    from fhe_tpu_torch import kernels
+    n = ctx.params.n
+    ctx = dataclasses.replace(ctx, ntt_impl=impl)
+    tag = f"[func] ntt_impl={impl}"
+    cells = func_cells(ctx, key, inp)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = [call() for _, call, *_ in cells]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    boots = sum(cell[5] for cell in cells)
+    print(f"{tag} {boots} bootstraps (first calls) in {time.perf_counter() - t0:.3f} s (host "
+          f"clock); launches: {launches}")
+    outs = {}
+    for (what, _, wants, mod, pt, _, limited), out in zip(cells, results):
+        digits = out if isinstance(out, list) else [out]
+        if len(digits) != len(wants):
+            fail(f"{tag} {what}: {len(digits)} outputs, expected {len(wants)}")
+        for i, (ct, want) in enumerate(zip(digits, wants)):
+            name = what if len(wants) == 1 else f"{what} digit {i}"
+            if ct.a.shape != want.shape + (n,) or ct.modulus != mod:
+                fail(f"{tag} {name}: output ciphertext shape {tuple(ct.a.shape)} mod {ct.modulus}")
+            wrong = ctx.decrypt(sk, ct, pt).cpu().numpy() != want
+            print(f"{tag} {name}: {int(wrong.sum())} wrong of {want.size} (decrypted at p = {pt})"
+                  + (f", at {np.nonzero(wrong)[0][:8].tolist()}; noise-limited: held to the plain "
+                     f"pipeline" if limited else ""))
+            if wrong.any() and not limited:
+                fail(f"{tag} {name} does not decrypt to its plaintext model")
+            outs[name] = ct
+    per_boot = {ACC_KERNEL[impl]: n if impl == "fused" else 1, "ntt_forward": 1, "ntt_inverse": 1}
+    for name, count in launches.items():
+        if count != boots * per_boot.get(name, 0):
+            fail(f"{tag}: {count} {name} launches, expected {boots * per_boot.get(name, 0)}")
+    print(f"{tag}: launches as expected ({per_boot} a bootstrap, none of the others)")
+    return outs, launches
+
+
+@contextlib.contextmanager
+def plain_rotation():
+    """Within the block, the default accumulator rotates with the plain
+    PyTorch version on the card instead of kernel 3."""
+    from fhe_tpu_torch.tfhe import boot
+    kernel = boot.blind_rotate
+    boot.blind_rotate = lambda params, key, acc, a, a_modulus=None: boot.blind_rotate_plain(
+        params, key.bsk, acc, a, a_modulus)
+    try:
+        yield
+    finally:
+        boot.blind_rotate = kernel
+
+
+def check_noise_limited(ctx, sk, key, inp: dict, outs: dict, card: str) -> None:
+    """The noise-limited calls through the plain pipeline (the plain
+    rotation in place of kernel 3) must give the kernels' ciphertexts byte
+    for byte, so every wrong output is the algorithm's on STD128.  EvalFloor
+    at 8q is then taken apart: its middle phase x = (ct + beta - first
+    bootstrap) mod q must lie in [q/4, 3q/4), the range its second LUT
+    f2(x) = x assumes, and there the output's error is the second
+    bootstrap's output noise e3 alone, so an output may be wrong only
+    where x leaves that range or |e3| reaches the q/2 decryption margin."""
+    from fhe_tpu_torch.tfhe import funcboot
+    p = ctx.params
+    q, beta = p.q, funcboot.BETA
+    t0 = time.perf_counter()
+    with plain_rotation():
+        for what, call, wants, *_, limited in func_cells(ctx, key, inp):
+            if not limited:
+                continue
+            got = call()
+            for i, ct in enumerate(got if isinstance(got, list) else [got]):
+                name = what if len(wants) == 1 else f"{what} digit {i}"
+                if not (torch.equal(ct.a, outs[name].a) and torch.equal(ct.b, outs[name].b)):
+                    fail(f"[func] {name}: the kernels' output differs from the plain pipeline's")
+                print(f"[func] {name}: the plain pipeline gives the kernels' ciphertexts")
+    print(f"[func] noise-limited calls through the plain rotation: {time.perf_counter() - t0:.3f} s"
+          f" (host clock)")
+    s = sk.s.to(inp["floor8"].a.device, torch.int64)
+
+    def error(ct, value):
+        """Signed phase of ct minus value, in (-modulus/2, modulus/2]."""
+        mod = ct.modulus
+        ph = (ct.b.to(torch.int64) - (ct.a.to(torch.int64) * s).sum(-1)) % mod
+        return (ph - value + mod // 2) % mod - mod // 2
+
+    ct1 = funcboot.add_const(inp["floor8"], beta)
+    x1 = error(ct1, 0) % q
+    ct2 = funcboot.bootstrap_func(p, key, funcboot.set_modulus(ct1, q),
+                                  funcboot._f0_table(q, 8 * q), 8 * q)
+    e2 = error(ct2, torch.where(x1 < q // 2, 8 * q - q // 4, q // 4))
+    mid = funcboot.sub(ct1, ct2)
+    x = error(mid, 0) % q
+    xs, mod = np.arange(q), 8 * q                # eval_floor's second LUT
+    f2 = np.where(xs < q // 4, (mod - q // 2 - xs) % mod,
+                  np.where(xs < 3 * (q // 4), xs, (mod + q // 2 - xs) % mod))
+    ct3 = funcboot.bootstrap_func(p, key, funcboot.set_modulus(mid, q), f2, mod)
+    e3 = error(ct3, torch.from_numpy(f2).to(x.device)[x])
+    whole = outs[f"eval_floor 8q batch {BATCH}"]
+    parts = funcboot.sub(mid, ct3)
+    if not (torch.equal(parts.a, whole.a) and torch.equal(parts.b, whole.b)):
+        fail("[func] eval_floor 8q taken apart does not give eval_floor's output")
+    past = ((x < q // 4) | (x >= 3 * q // 4)).cpu().numpy()
+    big = (e3.abs() >= q // 2 - 1).cpu().numpy()
+    wrong = ctx.decrypt(sk, whole, 8).cpu().numpy() != inp["m8"]
+    sigma = [float(e.double().std()) for e in (e2, e3)]
+    print(f"[func] eval_floor 8q taken apart: its bootstraps' output noise std {sigma[0]:.3f} and "
+          f"{sigma[1]:.3f}, largest {int(e2.abs().max())} and {int(e3.abs().max())}, in units of "
+          f"8q = {8 * q} (beta = {beta}; P(N(0, std) < -beta) = "
+          f"{0.5 * math.erfc(beta / sigma[0] / math.sqrt(2)):.4f}); middle phase past [q/4, 3q/4) "
+          f"on {int(past.sum())} of {BATCH}, |e3| >= q/2 on {int(big.sum())}; wrong outputs "
+          f"{int(wrong.sum())}: {int((wrong & past).sum())} past, {int((wrong & big & ~past).sum())}"
+          f" by e3 alone, {int((wrong & ~past & ~big).sum())} unexplained  ({card})")
+    if (wrong & ~past & ~big).any():
+        fail("[func] eval_floor 8q is wrong where neither its middle phase nor e3 explains it")
+
+
+def public_key_check(dev) -> None:
+    """key_gen_pair, a bootstrap key on its secret keys, encrypt_pk of
+    BATCH random bits decrypted under sk_n and, switched to (n, q) with the
+    ksk, ANDed with secret-key ciphertexts against the truth table."""
+    from fhe_tpu_torch import BinFheContext, kernels
+    from fhe_tpu_torch.tfhe import lwe
+    ctx = BinFheContext.generate("STD128", device=dev)
+    p = ctx.params
+    rng = np.random.default_rng(SEED + 8)
+    t0 = time.perf_counter()
+    sk, sk_n, pk = ctx.key_gen_pair(rng)
+    key = ctx.bt_key_gen(sk, rng, sk_n=sk_n)
+    torch.cuda.synchronize()
+    print(f"[func] STD128 key_gen_pair (pk A {tuple(pk.A.shape)}) and bt_key_gen on its keys: "
+          f"{time.perf_counter() - t0:.3f} s (host clock)")
+    m1, m2 = rng.integers(0, 2, size=(2, BATCH))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ct_n = ctx.encrypt_pk(pk, m1, rng)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    ct1 = ctx.encrypt_pk(pk, m1, rng, ksk=key.ksk)
+    ct2 = ctx.encrypt(sk, m2, rng)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = ctx.eval_bin_gate(key, "AND", ct1, ct2)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    checks = [(f"encrypt_pk batch {BATCH} (dimension N, mod Q) under sk_n", ct_n, sk_n, m1,
+               (p.N, p.Q)),
+              (f"encrypt_pk batch {BATCH} switched to (n, q)", ct1, sk, m1, (p.n, p.q)),
+              (f"AND(public-key ct, secret-key ct) batch {BATCH}", out, sk, m1 & m2, (p.n, p.q))]
+    for what, ct, key_s, want, (dim, mod) in checks:
+        if ct.a.shape != (BATCH, dim) or ct.modulus != mod:
+            fail(f"[func] {what}: output ciphertext shape {tuple(ct.a.shape)} mod {ct.modulus}")
+        wrong = int((ctx.decrypt(key_s, ct).cpu().numpy() != want).sum())
+        print(f"[func] {what}: {wrong} wrong of {BATCH}")
+        if wrong:
+            fail(f"[func] {what} does not decrypt to its truth table")
+    noise = int(lwe.noise(p, sk_n, ct_n, m1).abs().max().item())
+    print(f"[func] encrypt_pk batch {BATCH}: {enc_s * 1e3:.3f} ms with its host draws (host "
+          f"clock); largest |noise| {noise} (decryption margin Q/8 = {p.Q // 8})")
+    want = {"blind_rotate": 1, "ntt_forward": 1, "ntt_inverse": 1}
+    if any(count != want.get(name, 0) for name, count in launches.items()):
+        fail(f"[func] public-key AND launches {launches}, expected {want}")
+
+
+def func_phase(dev, ctx, sk, key, errors: Errors, card: str) -> dict:
+    """The [func] phase; returns the launches of its counted run per
+    accumulator."""
+    from fhe_tpu_torch.tfhe import boot, boot_pallas
+    t_phase = time.perf_counter()
+    p = ctx.params
+    q = p.q
+    check_func_kernels(dev, p, errors)
+    rng = np.random.default_rng(SEED + 6)
+    inp = {"m4": rng.integers(0, 4, size=BATCH)}
+    inp["ct4"] = ctx.encrypt(sk, inp["m4"], rng)
+    inp["one"] = ctx.encrypt(sk, inp["m4"][:1], rng)
+    inp["m8"] = rng.integers(0, 8, size=BATCH)
+    inp["floor8"] = ctx.encrypt(sk, inp["m8"], rng, p=8, modulus=8 * q)
+    inp["msign"] = rng.integers(0, 8, size=BATCH + SIGN_8Q_BATCH)
+    inp["sign16"] = ctx.encrypt(sk, inp["msign"][:BATCH], rng, p=8, modulus=16 * q)
+    inp["sign8"] = ctx.encrypt(sk, inp["msign"][BATCH:], rng, p=8, modulus=8 * q)
+    inp["m16"] = rng.integers(0, 16, size=BATCH)
+    inp["decomp"] = ctx.encrypt(sk, inp["m16"], rng, p=16, modulus=4 * q)
+    inp["m2"] = rng.integers(0, 2, size=BATCH)
+    inp["floor2"] = ctx.encrypt(sk, inp["m2"], rng, p=2, modulus=2 * q)
+    inp["sign2"] = ctx.encrypt(sk, inp["msign"][:BATCH], rng, p=8, modulus=2 * q)
+    launches, first = {}, None
+    for impl in IMPLS:
+        outs, launches[impl] = func_run(ctx, sk, key, inp, impl)
+        if first is None:
+            first = outs
+            continue
+        for what, out in outs.items():
+            if not (torch.equal(out.a, first[what].a) and torch.equal(out.b, first[what].b)):
+                fail(f"[func] {what}: ntt_impl={impl} output differs from ntt_impl=None")
+        print(f"[func] ntt_impl={impl}: all {len(outs)} outputs identical to ntt_impl=None")
+    check_noise_limited(ctx, sk, key, inp, first, card)
+    ct4, one, ct_sign16 = inp["ct4"], inp["one"], inp["sign16"]
+
+    lut = ctx.generate_lut(FUNC_LUTS["arbitrary"], 4)
+    for impl in IMPLS:
+        c = dataclasses.replace(ctx, ntt_impl=impl)
+        func_ms = time_ms(lambda: c.eval_func(key, ct4, lut), reps=3)
+        sign_ms = time_ms(lambda: c.eval_sign(key, ct_sign16), reps=3)
+        single_ms = time_ms(lambda: c.eval_func(key, one, lut), reps=5)
+        print(f"[func] ntt_impl={impl} STD128 EvalFunc (arbitrary LUT, 2 bootstraps) batch "
+              f"{BATCH}: {func_ms:.3f} ms = {BATCH / func_ms * 1e3:.1f} ciphertexts/s  ({card})")
+        print(f"[func] ntt_impl={impl} STD128 EvalSign at 16q (5 bootstraps) batch {BATCH}: "
+              f"{sign_ms:.3f} ms = {BATCH / sign_ms * 1e3:.1f} ciphertexts/s  ({card})")
+        print(f"[func] ntt_impl={impl} STD128 single EvalFunc (arbitrary LUT) latency: "
+              f"{single_ms:.3f} ms  ({card})")
+
+    # the rotation kernels at ct_mod 2N (every index reachable) beside q
+    gen = np.random.default_rng(SEED + 9)
+    acc = _residues(gen, p.Q, (BATCH, 2, p.N), dev)
+    masks = {q_lwe: _residues(gen, q_lwe, (BATCH, p.n), dev) for q_lwe in (2 * p.N, q)}
+    rotations = {"blind_rotate": lambda a, q_lwe: boot.blind_rotate(p, key, acc, a, q_lwe),
+                 "blind_rotate_mega": lambda a, q_lwe: boot_pallas.blind_rotate_mega(
+                     p, key.bsk_br, acc, a, q_lwe),
+                 "rotate_step_br": lambda a, q_lwe: boot_pallas.blind_rotate_fused(
+                     p, key.bsk_br, acc, a, q_lwe)}
+    for name, rot in rotations.items():
+        times = {q_lwe: [] for q_lwe in masks}
+        for q_lwe in (2 * p.N, q, 2 * p.N, q):
+            times[q_lwe].append(time_ms(lambda: rot(masks[q_lwe], q_lwe), reps=3))
+        print(f"[func] {name} [{BATCH}, 2, {p.N}] x {p.n} steps (n launches for rotate_step_br), "
+              f"STD128 key, medians of 3 in two turns: "
+              f"{' / '.join(f'{t:.3f}' for t in times[2 * p.N])} ms at q_lwe = 2N, "
+              f"{' / '.join(f'{t:.3f}' for t in times[q])} ms at q_lwe = q  ({card})")
+    public_key_check(dev)
+    print(f"[func] the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return launches
+
+
 def time_ms(fn, reps: int) -> float:
     """Median CUDA-event time of fn() in ms; the caller has warmed fn up."""
     times = []
@@ -997,7 +1348,12 @@ def main() -> int:
     build()
     errors = Errors()
     check_kernels(dev, errors)
-    ctx, key, cts, launches = main_path(dev)
+    ctx, sk, key, cts, launches = main_path(dev)
+    func_launches = func_phase(dev, ctx, sk, key, errors, card)
+    for name in ("ntt_forward", "ntt_inverse"):
+        launches[name] += func_launches[None][name]
+    for impl, name in ACC_KERNEL.items():
+        launches[name] += func_launches[impl][name]
     acc_phase(dev, errors, card)
     rns_launches, rns_times = rns_phase(dev, errors, card)
     launches.update({name: rns_launches[name] for name in LIMB_KERNELS})

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .tfhe.acc import DmKey, LmkcdeyKey
-from .tfhe.lwe import LweCiphertext, LweSecretKey, LweSwitchingKey
+from .tfhe.lwe import LweCiphertext, LwePublicKey, LweSecretKey, LweSwitchingKey
 from .tfhe.rgsw import BootstrapKey
 from .tfhe.rgsw_rns import RnsKey
 
@@ -39,6 +39,12 @@ def ciphertext(a, b, modulus: int, pt_mod: int = 4, device="cuda") -> LweCiphert
     """fhe_tpu LweCiphertext (a, b, modulus, pt_mod) -> LweCiphertext."""
     return LweCiphertext(a=_residues(a, "a", device), b=_residues(b, "b", device),
                          modulus=int(modulus), pt_mod=int(pt_mod))
+
+
+def public_key(A, v, modulus: int, device="cuda") -> LwePublicKey:
+    """fhe_tpu LwePublicKey (A, v, modulus) -> LwePublicKey."""
+    return LwePublicKey(A=_residues(A, "A", device), v=_residues(v, "v", device),
+                        modulus=int(modulus))
 
 
 def bootstrap_key(bsk, ksk_a, ksk_b, device="cuda") -> BootstrapKey:

@@ -12,10 +12,12 @@ tensors and this wrapper for CUDA tensors.
 Every wrapper checks its inputs before any launch, and raises ValueError
 for a parameter set the kernels are not built for: an (N, dG2) outside
 `shapes()` (the instantiations, `csrc/cggi_shapes.h`) or Q >= 2^30 (the
-kernels' lazy reduction keeps values below 4Q < 2^32).  A block holds
-`choose_c(B, SMs)` ciphertexts.  The wrappers launch on the current stream
-without synchronising and add one to their entry of `LAUNCHES` per kernel
-launch.
+kernels' lazy reduction keeps values below 4Q < 2^32), and for an LWE
+modulus `q_lwe` of the mask (params.q unless the caller gives the
+ciphertext's own, as functional bootstrapping does) that is not a power
+of two dividing 2N.  A block holds `choose_c(B, SMs)` ciphertexts.  The
+wrappers launch on the current stream without synchronising and add one
+to their entry of `LAUNCHES` per kernel launch.
 """
 
 from __future__ import annotations
@@ -42,6 +44,16 @@ def check_params(params) -> None:
                          f"{list(shapes())} (csrc/cggi_shapes.h)")
     if params.Q >= MAX_Q:
         raise ValueError(f"Q = {params.Q} >= 2^30: the blind-rotation kernels need 4Q < 2^32")
+
+
+def check_q_lwe(params, q_lwe: int) -> None:
+    """ValueError unless the mask's modulus q_lwe is a power of two, >= 2,
+    dividing 2N: the kernels index X^(((q_lwe - a) mod q_lwe) * 2N/q_lwe)
+    with a mask of 2N - 1."""
+    two_n = 2 * params.N
+    if not (2 <= q_lwe <= two_n and q_lwe & (q_lwe - 1) == 0):
+        raise ValueError(f"LWE modulus {q_lwe} must be a power of two >= 2 dividing "
+                         f"2N = {two_n}")
 
 
 def choose_c(batch: int, sm_count: int) -> int:
@@ -83,34 +95,36 @@ def step_constants(params, plan) -> tuple:
     return (g_bits, offset, Q, plan.qinv_neg, plan.ninv, plan.ninv_s, (1 << 32) % Q)
 
 
-def checked(params, bsk_br, acc, a, psi_pows_mont):
+def checked(params, bsk_br, acc, a, psi_pows_mont, q_lwe: int | None):
     """Checks every input of a rotation (bsk_br [n, 2, dG2, 2, N], acc
-    [B, 2, N], a [B, n], psi_pows_mont [2N], int32 on one CUDA device);
-    returns (device, C, the five table pointers, the step constants with
-    q and 2N/q): the entry points' arguments around the shape."""
+    [B, 2, N], a [B, n] mod q_lwe (default params.q), psi_pows_mont [2N],
+    int32 on one CUDA device); returns (device, C, the five table pointers,
+    the step constants with q_lwe and 2N/q_lwe): the entry points'
+    arguments around the shape."""
     dev = acc.device
     if dev.type != "cuda":
         raise ValueError(f"blind-rotation kernel needs CUDA tensors, got {dev}")
     check_params(params)
-    N, dg2, q = params.N, params.digits_g2, params.q
+    q_lwe = params.q if q_lwe is None else q_lwe
+    check_q_lwe(params, q_lwe)
+    N, dg2 = params.N, params.digits_g2
     B, n = acc.shape[0], bsk_br.shape[0]
     require(acc, "acc", (B, 2, N), dev)
     require(bsk_br, "bsk_br", (n, 2, dg2, 2, N), dev)
     require(a, "a", (B, n), dev)
     require(psi_pows_mont, "psi_pows_mont", (2 * N,), dev)
-    if (2 * N) % q:
-        raise ValueError(f"LWE modulus {q} must divide 2N = {2 * N}")
     c = choose_c(B, _sm_count(dev))
     plan = nttmod.make_plan(N, params.Q, dev)
     tables = (psi_pows_mont.data_ptr(), plan.fwd_w.data_ptr(), plan.fwd_ws.data_ptr(),
               plan.inv_w.data_ptr(), plan.inv_ws.data_ptr())
-    return dev, c, tables, step_constants(params, plan) + (q, (2 * N) // q)
+    return dev, c, tables, step_constants(params, plan) + (q_lwe, (2 * N) // q_lwe)
 
 
-def scan(params, bsk_br, acc, a, psi_pows_mont, natural: bool) -> torch.Tensor:
+def scan(params, bsk_br, acc, a, psi_pows_mont, natural: bool,
+         q_lwe: int | None) -> torch.Tensor:
     """One launch of the whole-scan kernel in either order; returns the
     rotated accumulator [B, 2, N] (plain form, the order of acc)."""
-    dev, c, tables, consts = checked(params, bsk_br, acc, a, psi_pows_mont)
+    dev, c, tables, consts = checked(params, bsk_br, acc, a, psi_pows_mont, q_lwe)
     out = torch.empty_like(acc)
     rc = _build.library().cdll.fhe_cggi_scan(
         acc.data_ptr(), out.data_ptr(), a.data_ptr(), bsk_br.data_ptr(), *tables,
@@ -121,13 +135,13 @@ def scan(params, bsk_br, acc, a, psi_pows_mont, natural: bool) -> torch.Tensor:
 
 
 def blind_rotate(params, bsk_br: torch.Tensor, acc: torch.Tensor, a: torch.Tensor,
-                 psi_pows_mont: torch.Tensor) -> torch.Tensor:
+                 psi_pows_mont: torch.Tensor, q_lwe: int | None = None) -> torch.Tensor:
     """Kernel 3.  bsk_br [n, 2, dG2, 2, N] (the key in bit-reversed EVAL
     order, `rgsw.BootstrapKey.bsk_br`), acc [B, 2, N] (natural EVAL order,
-    plain form), a [B, n] the mask mod q, psi_pows_mont [2N], all int32 on
-    one CUDA device.  Returns the rotated accumulator [B, 2, N] in natural
-    EVAL order."""
-    out = scan(params, bsk_br, acc, a, psi_pows_mont, natural=True)
+    plain form), a [B, n] the mask mod q_lwe (default params.q),
+    psi_pows_mont [2N], all int32 on one CUDA device.  Returns the rotated
+    accumulator [B, 2, N] in natural EVAL order."""
+    out = scan(params, bsk_br, acc, a, psi_pows_mont, natural=True, q_lwe=q_lwe)
     LAUNCHES["blind_rotate"] += 1
     return out
 

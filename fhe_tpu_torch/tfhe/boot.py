@@ -10,7 +10,10 @@ the scan of fhe_tpu's boot.blind_rotate) for CPU tensors and the CUDA
 kernel (`kernels.blind_rotate`) for CUDA tensors.  `run_accumulator`
 picks the accumulator by the key's method and, for GINX, by `ntt_impl`,
 as fhe_tpu does: this natural-order rotation, the bit-reversed ones of
-`boot_pallas`, or the DM and LMKCDEY rotations of `acc`.
+`boot_pallas`, or the DM and LMKCDEY rotations of `acc`.  The GINX
+rotations take the mask's modulus `a_modulus` (default params.q): a
+functional bootstrap rotates by a mask mod its ciphertext's own modulus,
+a power of two dividing 2N.
 """
 
 from __future__ import annotations
@@ -83,16 +86,16 @@ def _rotation_indices(params: TfheParams, a: torch.Tensor, q: int):
 
 
 def blind_rotate_plain(params: TfheParams, bsk: torch.Tensor, acc: torch.Tensor,
-                       a: torch.Tensor) -> torch.Tensor:
+                       a: torch.Tensor, a_modulus: int | None = None) -> torch.Tensor:
     """CGGI accumulation, plain PyTorch version (any device).
 
     bsk: [steps, 2, dG2, 2, N] int32 (EVALUATION, Montgomery);
     acc: [B, 2, N] int32 (EVALUATION, plain form);
-    a:   [B, steps] int32, the LWE mask mod q.
+    a:   [B, steps] int32, the LWE mask mod a_modulus (default q).
     Returns the accumulator [B, 2, N] int32."""
     N, Q = params.N, params.Q
     plan = nttmod.make_plan(N, Q)
-    idx, zlb = _rotation_indices(params, a, params.q)
+    idx, zlb = _rotation_indices(params, a, params.q if a_modulus is None else a_modulus)
     acc = acc.to(torch.int64)
     for i in range(bsk.shape[0]):
         bsk_i = bsk[i].to(torch.int64)                      # [2, dG2, 2, N]
@@ -109,14 +112,15 @@ def blind_rotate_plain(params: TfheParams, bsk: torch.Tensor, acc: torch.Tensor,
 
 
 def blind_rotate(params: TfheParams, key: rgsw.BootstrapKey, acc: torch.Tensor,
-                 a: torch.Tensor) -> torch.Tensor:
+                 a: torch.Tensor, a_modulus: int | None = None) -> torch.Tensor:
     """CGGI accumulation: the plain version on key.bsk for CPU tensors, the
     CUDA kernel on the key's cached bit-reversed copy (`key.bsk_br`) for
-    CUDA tensors (raises on anything else, never falls back)."""
+    CUDA tensors (raises on anything else, never falls back).  a is the
+    mask mod a_modulus (default q)."""
     if acc.device.type == "cpu":
-        return blind_rotate_plain(params, key.bsk, acc, a)
+        return blind_rotate_plain(params, key.bsk, acc, a, a_modulus)
     return kbr.blind_rotate(params, key.bsk_br, acc, a,
-                            _psi_powers_mont_words(params.N, params.Q, acc.device))
+                            _psi_powers_mont_words(params.N, params.Q, acc.device), a_modulus)
 
 
 def gate_constants(params: TfheParams, gate: Gate, p: int = 4) -> tuple[int, int, int, int]:
@@ -149,6 +153,30 @@ def make_gate_test_vector(params: TfheParams, b: torch.Tensor, consts) -> torch.
     return out.reshape(b.shape[0], N)
 
 
+def make_func_test_vector(params: TfheParams, b: torch.Tensor, f_table: np.ndarray,
+                          f_mod: int, ct_mod: int | None = None) -> torch.Tensor:
+    """Accumulator init for a functional bootstrap (BootstrapFuncCore),
+    COEFFICIENT format: b [B] mod ct_mod (default q) -> [B, N] int32 with
+    Q/f_mod * f_table[(b - j) mod ct_mod] at coefficient j * 2N/ct_mod for
+    j in [0, ct_mod/2), zero elsewhere.  f_table: ct_mod host values in
+    [0, f_mod)."""
+    N, Q = params.N, params.Q
+    ct_mod = params.q if ct_mod is None else ct_mod
+    f_table = np.asarray(f_table)
+    if f_table.shape != (ct_mod,):
+        raise ValueError(f"a LUT over Z_{ct_mod} needs {ct_mod} entries, got shape "
+                         f"{f_table.shape}")
+    if f_table.min() < 0 or f_table.max() >= f_mod:
+        raise ValueError(f"LUT values must lie in [0, {f_mod})")
+    factor = 2 * N // ct_mod
+    tbl = torch.from_numpy(f_table.astype(np.int64) * (Q // f_mod)).to(b.device)
+    j = torch.arange(ct_mod // 2, dtype=torch.int64, device=b.device)
+    bj = sub_mod(b.to(torch.int64)[:, None], j, ct_mod)      # [B, ct_mod/2]
+    out = torch.zeros(b.shape[0], ct_mod // 2, factor, dtype=torch.int32, device=b.device)
+    out[:, :, 0] = tbl[bj].to(torch.int32)
+    return out.reshape(b.shape[0], N)
+
+
 def initial_acc(params: TfheParams, test_vec: torch.Tensor) -> torch.Tensor:
     """The accumulator (0, NTT(test_vec)), [B, 2, N] natural EVALUATION."""
     plan = nttmod.make_plan(params.N, params.Q, test_vec.device)
@@ -157,10 +185,11 @@ def initial_acc(params: TfheParams, test_vec: torch.Tensor) -> torch.Tensor:
 
 
 def bootstrap_core(params: TfheParams, key: rgsw.BootstrapKey, test_vec: torch.Tensor,
-                   a: torch.Tensor) -> torch.Tensor:
-    """Blind-rotate a COEFFICIENT test vector by the mask `a`; returns the
-    accumulator [B, 2, N] in EVALUATION format."""
-    return blind_rotate(params, key, initial_acc(params, test_vec), a)
+                   a: torch.Tensor, a_modulus: int | None = None) -> torch.Tensor:
+    """Blind-rotate a COEFFICIENT test vector by the mask `a` (mod
+    a_modulus, default q); returns the accumulator [B, 2, N] in EVALUATION
+    format."""
+    return blind_rotate(params, key, initial_acc(params, test_vec), a, a_modulus)
 
 
 # ntt_impl -> accumulator.  fhe_tpu's NTT names compute the same transform
@@ -179,7 +208,8 @@ def accumulator(ntt_impl: str | None) -> str:
 
 
 def run_accumulator(params: TfheParams, key: Key, test_vec: torch.Tensor,
-                    a: torch.Tensor, ntt_impl: str | None = None) -> torch.Tensor:
+                    a: torch.Tensor, ntt_impl: str | None = None,
+                    a_modulus: int | None = None) -> torch.Tensor:
     """Accumulator dispatch (fhe_tpu boot.run_accumulator, and the LMKCDEY
     branch of its _finish_gate): test vector [B, N] COEFFICIENT ->
     accumulator [B, 2, N] natural EVALUATION.
@@ -190,18 +220,22 @@ def run_accumulator(params: TfheParams, key: Key, test_vec: torch.Tensor,
     fhe_tpu, whose "mega"/"fused" only match a GINX key.  A GINX
     BootstrapKey: "mega", the bit-reversed whole scan (kernel 4); "fused",
     the bit-reversed scan one step per launch (kernel 5); otherwise the
-    natural-order whole scan (kernel 3)."""
+    natural-order whole scan (kernel 3).  A mask mod a_modulus other than q
+    (a functional bootstrap's) takes a GINX key, as in fhe_tpu."""
     impl = accumulator(ntt_impl)
+    if a_modulus not in (None, params.q) and not isinstance(key, rgsw.BootstrapKey):
+        raise ValueError(f"a mask mod {a_modulus} != q needs a GINX BootstrapKey, "
+                         f"got {type(key).__name__}")
     if isinstance(key, accmod.DmKey):
         return accmod.blind_rotate_dm(params, key.bsk, initial_acc(params, test_vec), a)
     if isinstance(key, accmod.LmkcdeyKey):
         return accmod.blind_rotate_lmkcdey_scan(params, key.rgsw, key.auto,
                                                 initial_acc(params, test_vec), a.cpu().numpy())
     if impl == "mega2":
-        return bootstrap_core(params, key, test_vec, a)
+        return bootstrap_core(params, key, test_vec, a, a_modulus)
     from . import boot_pallas
     core = boot_pallas.bootstrap_core_mega if impl == "mega" else boot_pallas.bootstrap_core_fused
-    return core(params, key, test_vec, a)
+    return core(params, key, test_vec, a, a_modulus)
 
 
 def extract_lwe(params: TfheParams, acc: torch.Tensor, b_offset: int,

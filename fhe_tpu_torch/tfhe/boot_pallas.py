@@ -45,67 +45,73 @@ def _psi_powers(params: TfheParams, device) -> torch.Tensor:
 
 
 def blind_rotate_mega_plain(params: TfheParams, bsk_br: torch.Tensor,
-                            acc_br: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+                            acc_br: torch.Tensor, a: torch.Tensor,
+                            a_modulus: int | None = None) -> torch.Tensor:
     """Plain version of kernel 4: bsk_br [n, 2, dG2, 2, N], acc_br [B, 2, N]
-    in bit-reversed EVAL order, a [B, n] the mask mod q."""
+    in bit-reversed EVAL order, a [B, n] the mask mod a_modulus (default q)."""
     rot = boot.blind_rotate_plain(params, bit_reverse(params, bsk_br),
-                                  bit_reverse(params, acc_br), a)
+                                  bit_reverse(params, acc_br), a, a_modulus)
     return bit_reverse(params, rot)
 
 
 def blind_rotate_mega(params: TfheParams, bsk_br: torch.Tensor, acc_br: torch.Tensor,
-                      a: torch.Tensor) -> torch.Tensor:
+                      a: torch.Tensor, a_modulus: int | None = None) -> torch.Tensor:
     """Whole-scan CGGI accumulation in bit-reversed order: the plain version
     for CPU tensors, kernel 4 for CUDA tensors."""
     if acc_br.device.type == "cpu":
-        return blind_rotate_mega_plain(params, bsk_br, acc_br, a)
-    return kbr.blind_rotate_mega(params, bsk_br, acc_br, a, _psi_powers(params, acc_br.device))
+        return blind_rotate_mega_plain(params, bsk_br, acc_br, a, a_modulus)
+    return kbr.blind_rotate_mega(params, bsk_br, acc_br, a, _psi_powers(params, acc_br.device),
+                                 a_modulus)
 
 
 def rotate_step_br_plain(params: TfheParams, bsk_br_i: torch.Tensor, acc_br: torch.Tensor,
-                         a_i: torch.Tensor) -> torch.Tensor:
+                         a_i: torch.Tensor, a_modulus: int | None = None) -> torch.Tensor:
     """Plain version of kernel 5, one step: bsk_br_i [2, dG2, 2, N], a_i [B]."""
-    return blind_rotate_mega_plain(params, bsk_br_i[None], acc_br, a_i[:, None])
+    return blind_rotate_mega_plain(params, bsk_br_i[None], acc_br, a_i[:, None], a_modulus)
 
 
 def rotate_step_br(params: TfheParams, bsk_br_i: torch.Tensor, acc_br: torch.Tensor,
-                   a_i: torch.Tensor) -> torch.Tensor:
+                   a_i: torch.Tensor, a_modulus: int | None = None) -> torch.Tensor:
     """One CGGI step in bit-reversed order: the plain version for CPU
     tensors, one launch of kernel 5 for CUDA tensors."""
     if acc_br.device.type == "cpu":
-        return rotate_step_br_plain(params, bsk_br_i, acc_br, a_i)
-    return kbr.rotate_step_br(params, bsk_br_i, acc_br, a_i, _psi_powers(params, acc_br.device))
+        return rotate_step_br_plain(params, bsk_br_i, acc_br, a_i, a_modulus)
+    return kbr.rotate_step_br(params, bsk_br_i, acc_br, a_i, _psi_powers(params, acc_br.device),
+                              a_modulus)
 
 
 def blind_rotate_fused(params: TfheParams, bsk_br: torch.Tensor, acc_br: torch.Tensor,
-                       a: torch.Tensor) -> torch.Tensor:
+                       a: torch.Tensor, a_modulus: int | None = None) -> torch.Tensor:
     """Per-step CGGI accumulation in bit-reversed order, one step at a time
     (fhe_tpu's lax.scan over `_step_kernel`): the plain step for CPU
     tensors, n launches of kernel 5 for CUDA tensors."""
     if acc_br.device.type == "cpu":
         for i in range(bsk_br.shape[0]):
-            acc_br = rotate_step_br_plain(params, bsk_br[i], acc_br, a[:, i])
+            acc_br = rotate_step_br_plain(params, bsk_br[i], acc_br, a[:, i], a_modulus)
         return acc_br
-    return kbr.blind_rotate_fused(params, bsk_br, acc_br, a, _psi_powers(params, acc_br.device))
+    return kbr.blind_rotate_fused(params, bsk_br, acc_br, a, _psi_powers(params, acc_br.device),
+                                  a_modulus)
 
 
 def _bootstrap_core_br(rotate, params: TfheParams, key: rgsw.BootstrapKey,
-                       test_vec: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+                       test_vec: torch.Tensor, a: torch.Tensor,
+                       a_modulus: int | None) -> torch.Tensor:
     plan = nttmod.make_plan(params.N, params.Q, test_vec.device)
     acc1 = nttmod.ntt_forward(plan, test_vec, out_br=True)
     acc_br = torch.stack([torch.zeros_like(acc1), acc1], dim=1)
-    rot = rotate(params, key.bsk_br, acc_br, a)
+    rot = rotate(params, key.bsk_br, acc_br, a, a_modulus)
     return bit_reverse(params, rot)
 
 
-def bootstrap_core_mega(params: TfheParams, key: rgsw.BootstrapKey,
-                        test_vec: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Test vector [B, N] COEFFICIENT -> whole-scan rotation -> accumulator
-    [B, 2, N] in natural EVAL order (boot.bootstrap_core with impl "mega")."""
-    return _bootstrap_core_br(blind_rotate_mega, params, key, test_vec, a)
+def bootstrap_core_mega(params: TfheParams, key: rgsw.BootstrapKey, test_vec: torch.Tensor,
+                        a: torch.Tensor, a_modulus: int | None = None) -> torch.Tensor:
+    """Test vector [B, N] COEFFICIENT -> whole-scan rotation by the mask a
+    mod a_modulus (default q) -> accumulator [B, 2, N] in natural EVAL
+    order (boot.bootstrap_core with impl "mega")."""
+    return _bootstrap_core_br(blind_rotate_mega, params, key, test_vec, a, a_modulus)
 
 
-def bootstrap_core_fused(params: TfheParams, key: rgsw.BootstrapKey,
-                         test_vec: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+def bootstrap_core_fused(params: TfheParams, key: rgsw.BootstrapKey, test_vec: torch.Tensor,
+                         a: torch.Tensor, a_modulus: int | None = None) -> torch.Tensor:
     """As bootstrap_core_mega, one launch per step (impl "fused")."""
-    return _bootstrap_core_br(blind_rotate_fused, params, key, test_vec, a)
+    return _bootstrap_core_br(blind_rotate_fused, params, key, test_vec, a, a_modulus)

@@ -9,8 +9,8 @@ device, such as "cpu"), and every Eval* accepts batched ciphertexts.
 (GINX/CGGI, AP/DM and LMKCDEY) with a single-limb ring modulus, and GINX on
 the 2-limb RNS ring (the sets with Q >= 2^31, `rgsw_rns`), where
 `ntt_impl` changes nothing, as in fhe_tpu.  What fhe_tpu has no RNS path
-for raises a named ValueError there (`_single_limb_only`); the unported
-paths raise NotImplementedError naming their ROADMAP.md item.
+for raises a named ValueError there (`_single_limb_only`): functional
+bootstrapping (`funcboot`) runs on a single-limb GINX key only.
 """
 
 from __future__ import annotations
@@ -20,14 +20,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import acc, boot, lwe, rgsw, rgsw_rns
+from . import acc, boot, funcboot, lwe, rgsw, rgsw_rns
 from .boot import Key
 from .params import Gate, Method, TfheParams, make_params
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to fhe_tpu_torch yet (ROADMAP.md queue 1, {item})")
 
 
 def _rng(rng: np.random.Generator | int) -> np.random.Generator:
@@ -91,11 +86,21 @@ class BinFheContext:
         rgsw_keys, auto_keys = acc.lmkcdey_key_gen(p, sk, sk_n, rng)
         return acc.LmkcdeyKey(rgsw=rgsw_keys, auto=auto_keys, ksk=ksk)
 
-    def key_gen_pair(self, rng: np.random.Generator | int = 0):
-        _unported("public-key mode", "item 4, lwe.pub_key_gen / encrypt_pk")
+    def key_gen_pair(self, rng: np.random.Generator | int = 0
+                     ) -> tuple[lwe.LweSecretKey, lwe.LweSecretKey, lwe.LwePublicKey]:
+        """KeyGenPair: (sk of dimension n, sk_n of dimension N, the public
+        key over N), drawn in fhe_tpu's order."""
+        rng = _rng(rng)
+        sk = lwe.keygen(self.params, rng, device=self.device)
+        sk_n = lwe.keygen(self.params, rng, dim=self.params.N, device=self.device)
+        return sk, sk_n, lwe.pub_key_gen(self.params, sk_n, rng)
 
-    def encrypt_pk(self, pk, m, rng: np.random.Generator | int = 0, p: int = 4, ksk=None):
-        _unported("public-key mode", "item 4, lwe.pub_key_gen / encrypt_pk")
+    def encrypt_pk(self, pk: lwe.LwePublicKey, m, rng: np.random.Generator | int = 0,
+                   p: int = 4, ksk: lwe.LweSwitchingKey | None = None) -> lwe.LweCiphertext:
+        """Public-key encryption: dimension-N ciphertexts mod Q; with the
+        bootstrap key's ksk, switched down to (n, q) for the gates."""
+        ct = lwe.encrypt_pk(self.params, pk, m, _rng(rng), p)
+        return ct if ksk is None else lwe.switch_ct_to_qn(self.params, ksk, ct)
 
     # -- encryption ---------------------------------------------------------
     def encrypt(self, sk: lwe.LweSecretKey, m, rng: np.random.Generator | int = 0,
@@ -163,15 +168,34 @@ class BinFheContext:
         self._single_limb_only("bootstrap")
         return boot.bootstrap(self.params, key, ct, extended, self.ntt_impl)
 
-    # -- functional bootstrapping -------------------------------------------
-    def eval_func(self, key, ct, lut):
-        _unported("functional bootstrapping", "item 7c, tfhe/funcboot.py")
+    # -- functional bootstrapping (eprint 2021/1337) ------------------------
+    def generate_lut(self, f, p: int) -> np.ndarray:
+        """The LUT over Z_q of f: Z_p -> Z_p (GenerateLUTviaFunction)."""
+        return funcboot.generate_lut(f, p, self.params.q)
 
-    def eval_floor(self, key, ct, roundbits: int = 0):
-        _unported("functional bootstrapping", "item 7c, tfhe/funcboot.py")
+    def eval_func(self, key: rgsw.BootstrapKey, ct: lwe.LweCiphertext,
+                  lut) -> lwe.LweCiphertext:
+        self._single_limb_only("functional bootstrapping")
+        return funcboot.eval_func(self.params, key, ct, lut, ntt_impl=self.ntt_impl)
 
-    def eval_sign(self, key, ct, scheme_switch: bool = False):
-        _unported("functional bootstrapping", "item 7c, tfhe/funcboot.py")
+    def eval_floor(self, key: rgsw.BootstrapKey, ct: lwe.LweCiphertext,
+                   roundbits: int = 0) -> lwe.LweCiphertext:
+        self._single_limb_only("functional bootstrapping")
+        return funcboot.eval_floor(self.params, key, ct, roundbits=roundbits,
+                                   ntt_impl=self.ntt_impl)
 
-    def eval_decomp(self, key, ct):
-        _unported("functional bootstrapping", "item 7c, tfhe/funcboot.py")
+    def eval_sign(self, key: rgsw.BootstrapKey, ct: lwe.LweCiphertext,
+                  scheme_switch: bool = False) -> lwe.LweCiphertext:
+        self._single_limb_only("functional bootstrapping")
+        return funcboot.eval_sign(self.params, key, ct, scheme_switch=scheme_switch,
+                                  ntt_impl=self.ntt_impl)
+
+    def eval_decomp(self, key: rgsw.BootstrapKey,
+                    ct: lwe.LweCiphertext) -> list[lwe.LweCiphertext]:
+        self._single_limb_only("functional bootstrapping")
+        return funcboot.eval_decomp(self.params, key, ct, ntt_impl=self.ntt_impl)
+
+    @property
+    def max_plaintext_space(self) -> int:
+        """q / (2 beta)."""
+        return self.params.q // (2 * funcboot.BETA)

@@ -108,6 +108,61 @@ def encrypt(params: TfheParams, sk: LweSecretKey, m, rng: np.random.Generator,
     return LweCiphertext(a=a, b=b.to(torch.int32), modulus=q, pt_mod=p)
 
 
+@dataclasses.dataclass(frozen=True)
+class LwePublicKey:
+    """LWE public key over the ring dimension N (lwe-pke.cpp PubKeyGen):
+    A [N, N] uniform, v = A s + e, int32 residues mod `modulus` (= Q)."""
+    A: torch.Tensor
+    v: torch.Tensor
+    modulus: int
+
+    def to(self, device) -> "LwePublicKey":
+        return dataclasses.replace(self, A=self.A.to(device), v=self.v.to(device))
+
+
+def pub_key_gen(params: TfheParams, sk_n: LweSecretKey,
+                rng: np.random.Generator) -> LwePublicKey:
+    """PubKeyGen: v_j = <A[j], s> + e_j mod Q, host numpy (exact: |A s| <
+    N Q), output on sk_n's device."""
+    Q = params.Q
+    if Q >= 2**31:
+        raise NotImplementedError("public-key mode needs a single-limb Q < 2^31 "
+                                  "(use a non-RNS paramset)")
+    N = int(sk_n.s.shape[0])
+    A = rng.integers(0, Q, size=(N, N), dtype=np.int64)
+    s = sk_n.s.cpu().numpy().astype(np.int64)
+    e = _sample_error(rng, N, params.std_dev)
+    v = (A @ s + e) % Q
+    dev = sk_n.s.device
+    return LwePublicKey(A=_residues(A, dev), v=_residues(v, dev), modulus=Q)
+
+
+def encrypt_pk(params: TfheParams, pk: LwePublicKey, m, rng: np.random.Generator,
+               p: int = 4) -> LweCiphertext:
+    """Public-key encryption (lwe-pke.cpp EncryptN): a ternary combiner sp
+    per message, a = A^t sp + e_a, b = m Q/p + e_b + <v, sp> mod Q.  Gives
+    dimension-N ciphertexts mod Q on the key's device; switch_ct_to_qn
+    brings them to (n, q).
+
+    sp, e_a and e_b are drawn on the host in fhe_tpu's order (8 bytes a
+    coefficient of each, the batch's only host work).  The products sp A
+    and sp v run on the key's device as float64 matrix products, which are
+    exact: every partial sum is an integer below N Q < 2^53."""
+    Q = pk.modulus
+    m = np.asarray(m, dtype=np.int64)
+    N = pk.A.shape[0]
+    sp = rng.integers(-1, 2, size=m.shape + (N,), dtype=np.int64)
+    e_a = _sample_error(rng, m.shape + (N,), params.std_dev)
+    e_b = _sample_error(rng, m.shape, params.std_dev)
+    dev = pk.A.device
+    spf = torch.from_numpy(sp.astype(np.int8)).to(dev).to(torch.float64)
+    a = torch.matmul(spf, pk.A.to(torch.float64)).to(torch.int64)
+    a = torch.remainder(a + torch.from_numpy(e_a).to(dev), Q)
+    b = torch.matmul(spf, pk.v.to(torch.float64)).to(torch.int64)
+    b = torch.remainder(b + torch.from_numpy((m % p) * (Q // p) + e_b).to(dev), Q)
+    return LweCiphertext(a=a.to(torch.int32), b=b.to(torch.int32), modulus=Q, pt_mod=p)
+
+
 def decrypt(params: TfheParams, sk: LweSecretKey, ct: LweCiphertext,
             p: int | None = None) -> torch.Tensor:
     """floor(p/q * (b - <a,s>) + 1/2) (lwe-pke.cpp:182-214), int32."""
@@ -117,6 +172,18 @@ def decrypt(params: TfheParams, sk: LweSecretKey, ct: LweCiphertext,
     r = sub_mod(ct.b, _dot_mod(ct.a, s, q), q)
     r = add_mod(r, q // (p * 2), q)
     return (r * p // q % p).to(torch.int32)
+
+
+def noise(params: TfheParams, sk: LweSecretKey, ct: LweCiphertext, m,
+          p: int | None = None) -> torch.Tensor:
+    """Signed error e = b - <a,s> - encode(m), in (-q/2, q/2], int32."""
+    p = ct.pt_mod if p is None else p
+    q = ct.modulus
+    s = sk.s.to(ct.a.device, torch.int64) % q
+    r = sub_mod(ct.b, _dot_mod(ct.a, s, q), q)
+    enc = torch.from_numpy(np.asarray(m, dtype=np.int64) % p * (q // p)).to(r.device)
+    e = sub_mod(r, enc, q)
+    return torch.where(e > q // 2, e - q, e).to(torch.int32)
 
 
 def add(ct1: LweCiphertext, ct2: LweCiphertext) -> LweCiphertext:

@@ -1,6 +1,6 @@
 """fhe_tpu_torch.parallel, the batch API, on the CPU at TOY: the result
-counts, ASYNC futures, NO_BOOTSTRAP, the unported mesh= and eval_func, and
-the flags against fhe_tpu's.
+counts, ASYNC futures, NO_BOOTSTRAP, eval_func_batch, the unported mesh=,
+and the flags against fhe_tpu's.
 """
 
 import numpy as np
@@ -61,6 +61,20 @@ def test_bootstrap_batch_and_no_bootstrap(toy):
     np.testing.assert_array_equal(ctx.decrypt(sk, out).numpy() % 2, m1)
 
 
+def test_eval_func_batch_succeeds(toy):
+    """A LUT bootstrap over the batch, ASYNC: the identity over Z_2, the
+    context's plaintext space (an arbitrary LUT at TOY: two bootstraps at
+    2q)."""
+    ctx, sk, key, m1, _, _, _ = toy
+    assert ctx.max_plaintext_space == 2
+    ct = ctx.encrypt(sk, m1, 5, p=2)
+    fut, res = eval_func_batch(ctx, key, ct, ctx.generate_lut(lambda m, p: m, 2),
+                               BatchFlags.ASYNC)
+    assert res == BatchResult(success=True, processed=8, failed=0, error="")
+    assert fut.done()
+    np.testing.assert_array_equal(ctx.decrypt(sk, fut.result(), 2).numpy(), m1)
+
+
 def test_mesh_raises_naming_its_roadmap_item(toy):
     ctx, _, key, _, _, ct1, ct2 = toy
     calls = [lambda: bootstrap_batch(ctx, key, ct1, mesh=object()),
@@ -72,13 +86,13 @@ def test_mesh_raises_naming_its_roadmap_item(toy):
 
 
 def test_failures_are_reported(toy):
-    """An exception inside the batch call comes back as success=False: the
-    unported eval_func, and a gate with an unknown ntt_impl."""
+    """An exception inside the batch call comes back as success=False: an
+    eval_func LUT of the wrong length, and a gate with an unknown ntt_impl."""
     ctx, _, key, _, _, ct1, ct2 = toy
     out, res = eval_func_batch(ctx, key, ct1, np.arange(4))
     assert out is None
     assert (res.success, res.processed, res.failed) == (False, 0, 8)
-    assert "functional bootstrapping" in res.error
+    assert "a LUT over Z_512 needs 512 entries" in res.error
     bad = BinFheContext(params=ctx.params, device=ctx.device, ntt_impl="lanes")
     out, res = eval_bin_gate_batch(bad, key, "AND", ct1, ct2)
     assert out is None and not res.success and "ntt_impl" in res.error

@@ -7,6 +7,8 @@ installed.  Every test needs a CUDA device and skips without one:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -119,15 +121,18 @@ def _rotation_inputs(gen, p, B, steps, dev):
             _residues(gen, p.q, (B, steps), dev))
 
 
-def _check_all_orders(p, acc, bsk, a):
+def _check_all_orders(p, acc, bsk, a, q_lwe=None):
     """The scan in both orders and kernel 5's n launches, byte-equal to
-    their plain versions."""
+    their plain versions, with the mask a mod q_lwe (default q)."""
     pows = boot._psi_powers_mont_words(p.N, p.Q, acc.device)
     bsk_br = boot_pallas.bsk_to_br(p, bsk)
-    _same(kbr.blind_rotate(p, bsk_br, acc, a, pows), boot.blind_rotate_plain(p, bsk, acc, a))
-    want = boot_pallas.blind_rotate_mega_plain(p, bsk_br, acc, a)
-    _same(kbr_br.blind_rotate_mega(p, bsk_br, acc, a, pows), want)
-    _same(kbr_br.blind_rotate_fused(p, bsk_br, acc, a, pows), want)
+    _same(kbr.blind_rotate(p, bsk_br, acc, a, pows, q_lwe),
+          boot.blind_rotate_plain(p, bsk, acc, a, q_lwe))
+    want = boot_pallas.blind_rotate_mega_plain(p, bsk_br, acc, a, q_lwe)
+    _same(kbr_br.blind_rotate_mega(p, bsk_br, acc, a, pows, q_lwe), want)
+    _same(kbr_br.blind_rotate_fused(p, bsk_br, acc, a, pows, q_lwe), want)
+    _same(kbr_br.rotate_step_br(p, bsk_br[0], acc, a[:, 0], pows, q_lwe),
+          boot_pallas.rotate_step_br_plain(p, bsk_br[0], acc, a[:, 0], q_lwe))
 
 
 def _sm_count(dev):
@@ -172,7 +177,72 @@ def test_rotation_kernels_reject_unsupported_shape(cuda, gen):
     assert launch_counts() == before
 
 
+@pytest.mark.parametrize("q_lwe", ["2N", "N", "N/2", "N/4"])
+@pytest.mark.parametrize("B", [1, 8, "4 SMs + 1"])
+def test_rotation_kernels_at_each_lwe_modulus(q_lwe, B, cuda, gen):
+    """Kernels 3, 4 and 5 at STD128's shape with the mask mod q_lwe (the
+    functional bootstrap's ct_mod: 2N/q_lwe = 1, 2, 4, 8), byte-equal to
+    their plain versions; random keys, 4 steps."""
+    p = make_params("STD128")
+    q_lwe = {"2N": 2 * p.N, "N": p.N, "N/2": p.N // 2, "N/4": p.N // 4}[q_lwe]
+    B = 4 * _sm_count(cuda) + 1 if B == "4 SMs + 1" else B
+    acc, bsk, _ = _rotation_inputs(gen, p, B, 4, cuda)
+    _check_all_orders(p, acc, bsk, _residues(gen, q_lwe, (B, 4), cuda), q_lwe)
+
+
+@pytest.mark.parametrize("q_lwe", [3 * 256, 4096, 1])
+def test_rotation_kernels_refuse_lwe_modulus(q_lwe, cuda, gen):
+    """An LWE modulus that is not a power of two >= 2 dividing 2N:
+    ValueError before any launch, on every wrapper."""
+    p = make_params("STD128")
+    acc, bsk, a = _rotation_inputs(gen, p, 2, 1, cuda)
+    pows = boot._psi_powers_mont_words(p.N, p.Q, cuda)
+    before = launch_counts()
+    for fn in (kbr.blind_rotate, kbr_br.blind_rotate_mega, kbr_br.blind_rotate_fused):
+        with pytest.raises(ValueError, match=f"LWE modulus {q_lwe} must be a power of two"):
+            fn(p, bsk, acc, a, pows, q_lwe)
+    assert launch_counts() == before
+
+
 KERNEL_OF = {None: "blind_rotate", "mega": "blind_rotate_mega", "fused": "rotate_step_br"}
+
+
+@pytest.mark.parametrize("impl", [None, "mega", "fused"])
+def test_medium_funcboot_on_card_matches_cpu(impl, cuda):
+    """MEDIUM with n cut to 8: eval_func (arbitrary LUT, ct_mod 2q = 2N),
+    eval_floor and eval_sign at 2q (its last bootstrap at q/2) and
+    eval_floor at 8q on the card equal the plain CPU pipeline byte for
+    byte (at 8q some floors are wrong on both: the bootstrap noise there is
+    a good part of beta); each bootstrap launches the accumulator's kernel
+    (once, or n times for "fused") and kernels 1 and 2 once."""
+    outs = []
+    m = np.random.default_rng(6).integers(0, 8, size=16)
+    for dev in ("cpu", cuda):
+        ctx = BinFheContext(params=dataclasses.replace(make_params("MEDIUM"), n=8),
+                            device=torch.device(dev), ntt_impl=impl)
+        q, n = ctx.params.q, ctx.params.n
+        sk = ctx.key_gen(1)
+        key = ctx.bt_key_gen(sk, 2)
+        lut = ctx.generate_lut(lambda x, p: (x + 1) % p, 4)
+        ct = ctx.encrypt(sk, m % 4, 3)
+        wide = ctx.encrypt(sk, m, 4, p=8, modulus=2 * q)
+        before = launch_counts()
+        out = [ctx.eval_func(key, ct, lut), ctx.eval_floor(key, wide), ctx.eval_sign(key, wide),
+               ctx.eval_floor(key, ctx.encrypt(sk, m, 5, p=8, modulus=8 * q))]
+        after = launch_counts()
+        np.testing.assert_array_equal(ctx.decrypt(sk, out[0]).cpu().numpy(), (m + 1) % 4)
+        np.testing.assert_array_equal(ctx.decrypt(sk, out[1], 2).cpu().numpy(), m >= 4)
+        np.testing.assert_array_equal(ctx.decrypt(sk, out[2], 2).cpu().numpy(), m >= 4)
+        boots = 2 + 2 + 3 + 2
+        per_boot = {KERNEL_OF[impl]: n if impl == "fused" else 1, "ntt_forward": 1,
+                    "ntt_inverse": 1}
+        for kernel in after:
+            want = 0 if dev == "cpu" else boots * per_boot.get(kernel, 0)
+            assert after[kernel] - before[kernel] == want, kernel
+        outs.append([o.to("cpu") for o in out])
+    for got, want in zip(outs[1], outs[0]):
+        _same(got.a, want.a)
+        _same(got.b, want.b)
 
 
 @pytest.mark.parametrize("impl", [None, "mega", "fused"])

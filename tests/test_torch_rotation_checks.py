@@ -1,7 +1,8 @@
 """The blind-rotation wrappers' checks on the CPU, without a kernel: the
-instantiated shapes against the parameter sets, the shape and Q
-validation, the choice of ciphertexts per block, and the bit-reversed key
-made once per BootstrapKey.
+instantiated shapes against the parameter sets, the shape, Q and LWE
+modulus validation, the choice of ciphertexts per block, the bit-reversed
+key made once per BootstrapKey, and the mask's modulus through every
+accumulator.
 """
 
 import dataclasses
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 from fhe_tpu_torch.kernels import blind_rotate as kbr
-from fhe_tpu_torch.tfhe import boot, make_params, rgsw
+from fhe_tpu_torch.tfhe import acc, boot, make_params, rgsw
 from fhe_tpu_torch.tfhe.params import PARAM_SETS
 
 
@@ -47,6 +48,38 @@ def test_check_params_rejects_modulus_from_2_to_30():
     kbr.check_params(p)
     with pytest.raises(ValueError, match="2\\^30"):
         kbr.check_params(dataclasses.replace(p, Q=(1 << 30) + 1))
+
+
+@pytest.mark.parametrize("q_lwe", [2, 4, 512, 1024, 2048])
+def test_check_q_lwe_accepts_powers_of_two_dividing_2n(q_lwe):
+    kbr.check_q_lwe(make_params("STD128"), q_lwe)
+
+
+@pytest.mark.parametrize("q_lwe", [0, 1, 3, 768, 1536, 4096])
+def test_check_q_lwe_refuses_the_rest(q_lwe):
+    """Not a power of two, below 2, or not dividing 2N = 2048."""
+    with pytest.raises(ValueError, match=f"LWE modulus {q_lwe} must be a power of two >= 2 "
+                                         f"dividing 2N = 2048"):
+        kbr.check_q_lwe(make_params("STD128"), q_lwe)
+
+
+def test_mask_modulus_reaches_every_accumulator():
+    """idx = ((q - a) mod q) 2N/q, so the mask a mod q rotates as 2a mod 2q
+    does: every ntt_impl gives the same accumulator both ways (TOY widths,
+    a random key of 4 steps, batch 3).  A mask mod another modulus than q
+    needs a GINX key."""
+    p = make_params("TOY")
+    gen = np.random.default_rng(8)
+    bsk = torch.from_numpy(gen.integers(0, p.Q, size=(4, 2, p.digits_g2, 2, p.N)))
+    key = rgsw.BootstrapKey(bsk=bsk.to(torch.int32), ksk=None)
+    tv = torch.from_numpy(gen.integers(0, p.Q, size=(3, p.N))).to(torch.int32)
+    a = torch.from_numpy(gen.integers(0, p.q, size=(3, 4))).to(torch.int32)
+    want = boot.run_accumulator(p, key, tv, a)
+    for impl in (None, "mega", "fused"):
+        got = boot.run_accumulator(p, key, tv, 2 * a, impl, a_modulus=2 * p.q)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="needs a GINX BootstrapKey, got DmKey"):
+        boot.run_accumulator(p, acc.DmKey(bsk=None, ksk=None), tv, a, a_modulus=2 * p.q)
 
 
 @pytest.mark.parametrize("batch,sms,c", [(1, 132, 1), (8, 132, 1), (527, 132, 1),
