@@ -71,7 +71,27 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    (decrypted under the dimension-N key, and with the ksk switch to
    (n, q)) and an AND of the switched ciphertexts with secret-key ones,
    against the truth table;
-8. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+8. [radix], the encrypted integers (tfhe/shortint.py, radix.py, fhevm.py)
+   at TOY_RADIX's full width (N = q = 8192, n = 64, dG2 = 10), keyed by
+   `FheContext.create("TOY_RADIX", rng=SEED)` on the card, where kernels
+   3-5 run the wide step (csrc/cggi_step_wide.cuh): the three kernels
+   byte-equal to their plain versions at batch 1, 8 and SMs + 1, q_lwe = q
+   and 2q; euint8 add, sub, mul, lt, eq, and, xor, not, select, min, shl
+   by 3, neg, is_zero, add_scalar and cast to euint16 on 256 random pairs,
+   div and rem on 16 (one by zero), the fhEVM token transfer (ok = ge(from,
+   amt), from' = select(ok, sub(from, amt), from), to' = select(ok,
+   add(to, amt), to)) on 64 euint64 accounts, a single euint8 add and sub,
+   public_key_gen and encrypt_public of 64 euint8 added to secret-key
+   ones: 0 wrong against Python integers, with the launch counters reset
+   before and read after each op (per bootstrap one launch of the wide
+   kernel 3, or 4, or n of the wide kernel 5, and one of each NTT kernel;
+   no other); the euint8 add and lt identical through all three
+   `ntt_impl`; euint8 add/sub/mul/lt per second at 256, euint64 transfers
+   per second at 64, the single ops' latency, one apply_lut over 4096 limb
+   ciphertexts as bootstraps/s, and the wide kernels at [4096, 2, 8192] x
+   64 steps beside their bound and the key's L2 traffic (80 MiB a
+   ciphertext), their plain versions at batch 64;
+9. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
    the NTT kernels, and their plain versions, with a cold L2 (each call
@@ -81,7 +101,7 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
 
 The build lines give each kernel's registers and spills (`-Xptxas -v`); a
 spill in any NTT kernel, or in a blind-rotation kernel at STD128's shape,
-fails the run.
+fails the run (the wide kernels' spills are reported only).
 
 It exits non-zero, and prints no result, when there is no CUDA device or
 any phase fails.  Its last three lines are a JSON object of the kernels,
@@ -119,11 +139,19 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                        "fhe_tpu/tfhe/boot_pallas.py:153"),
     "ntt_forward_limbs": ("fhe_tpu_torch/csrc/ntt.cuh", "fhe_tpu/math/ntt_pallas.py:64"),
     "ntt_inverse_limbs": ("fhe_tpu_torch/csrc/ntt.cuh", "fhe_tpu/math/ntt_pallas.py:79"),
+    "blind_rotate_wide": ("fhe_tpu_torch/csrc/blind_rotate.cuh", "fhe_tpu/tfhe/boot_mxu.py:230"),
+    "blind_rotate_mega_wide": ("fhe_tpu_torch/csrc/blind_rotate.cuh",
+                               "fhe_tpu/tfhe/boot_pallas.py:235"),
+    "rotate_step_br_wide": ("fhe_tpu_torch/csrc/blind_rotate.cuh",
+                            "fhe_tpu/tfhe/boot_pallas.py:153"),
 }
 # kernels 1-2 over stacked limbs: the RNS path's only kernels, on no other path
 LIMB_KERNELS = ("ntt_forward_limbs", "ntt_inverse_limbs")
 # the accumulator kernel each ntt_impl runs, and its launches per gate
 ACC_KERNEL = {None: "blind_rotate", "mega": "blind_rotate_mega", "fused": "rotate_step_br"}
+# the same at a ring of N >= kernels.blind_rotate.wide_n(): the wide step
+WIDE_KERNEL = {None: "blind_rotate_wide", "mega": "blind_rotate_mega_wide",
+               "fused": "rotate_step_br_wide"}
 # the [acc] phase: (set, method) at full width; the batch for a method whose
 # batch-4096 gate takes longer than SLOW_GATE_MS
 ACC_SETS = (("STD128_AP", "AP"), ("STD128_LMKCDEY", None))
@@ -148,6 +176,13 @@ FAULTY_SWITCH = ("STD128Q_3", "STD128Q_4")
 FUNC_LUTS = {"arbitrary": lambda m, p: (m + 1) % p, "negacyclic": lambda m, p: m ** 3 % p,
              "periodic": lambda m, p: (m * m + 1) % p}
 SIGN_8Q_BATCH = 64
+# the [radix] phase: the set at full width, the euint8 pairs, the divisions'
+# pairs, the euint64 accounts, and the plain rotations' batch
+RADIX_SET = "TOY_RADIX"
+RADIX_PAIRS = 256
+RADIX_DIV_PAIRS = 16
+RADIX_ACCOUNTS = 64
+RADIX_PLAIN_BATCH = 64
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
@@ -192,7 +227,9 @@ def kernel_reports(log: str) -> list[tuple[str, int, int]]:
         if m:
             mangled = m.group(1)
             args = ", ".join(re.findall(r"L[ib](\d+)E", mangled))
-            kind = ("scan_kernel" if "scan_kernel" in mangled else
+            kind = ("wide_scan_kernel" if "wide_scan_kernel" in mangled else
+                    "wide_step_kernel" if "wide_step_kernel" in mangled else
+                    "scan_kernel" if "scan_kernel" in mangled else
                     "step_kernel" if "step_kernel" in mangled else
                     "ntt_forward_limbs_kernel" if "forward_limbs_kernel" in mangled else
                     "ntt_inverse_limbs_kernel" if "inverse_limbs_kernel" in mangled else
@@ -354,7 +391,7 @@ def run_path(ctx, sk, key, bits, cts, impl):
     per_gate = ctx.params.n if impl == "fused" else 1
     for name in KERNELS:
         want = gates * per_gate if name == ACC_KERNEL[impl] else (
-            0 if name in ACC_KERNEL.values() or name in LIMB_KERNELS else None)
+            0 if name in (*ACC_KERNEL.values(), *WIDE_KERNEL.values(), *LIMB_KERNELS) else None)
         if want is None and launches[name] <= 0:
             fail(f"kernel {name} was not launched by the main path with ntt_impl={impl}")
         if want is not None and launches[name] != want:
@@ -483,7 +520,7 @@ def check_gate(what: str, ctx, sk, out, truth, ct1, ct2, bits1, bits2) -> np.nda
 def check_acc_launches(what: str, launches: dict, expected: collections.Counter) -> None:
     """Kernels 3-5 and the limb-stacked kernels not launched; kernels 1-2
     exactly as often as expected."""
-    for name in (*ACC_KERNEL.values(), *LIMB_KERNELS):
+    for name in (*ACC_KERNEL.values(), *WIDE_KERNEL.values(), *LIMB_KERNELS):
         if launches[name]:
             fail(f"{what}: kernel {name} launched {launches[name]} times")
     for name in ("ntt_forward", "ntt_inverse"):
@@ -1156,6 +1193,369 @@ def func_phase(dev, ctx, sk, key, errors: Errors, card: str) -> dict:
     return launches
 
 
+def check_wide_kernels(dev, p, errors: Errors) -> None:
+    """Kernels 3-5 on the wide step at TOY_RADIX's (8192, 10) against their
+    plain versions: batch 1, 8 and SMs + 1 (a last wave of one block),
+    the mask mod q (a gate, a periodic LUT) and 2q (an arbitrary LUT);
+    random keys of 4 steps."""
+    from fhe_tpu_torch.tfhe import boot, boot_pallas, rgsw
+    rng = np.random.default_rng(SEED + 10)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    steps = 4
+    for B in (1, 8, sms + 1):
+        acc = _residues(rng, p.Q, (B, 2, p.N), dev)
+        bsk = _residues(rng, p.Q, (steps, 2, p.digits_g2, 2, p.N), dev)
+        bsk_br = boot_pallas.bsk_to_br(p, bsk)
+        for q_lwe in (p.q, 2 * p.q):
+            a = _residues(rng, q_lwe, (B, steps), dev)
+            at = f"TOY_RADIX B={B} steps={steps} q_lwe={q_lwe} random key"
+            errors.compare("blind_rotate_wide",
+                           boot.blind_rotate(p, rgsw.BootstrapKey(bsk, None), acc, a, q_lwe),
+                           boot.blind_rotate_plain(p, bsk, acc, a, q_lwe), f"blind_rotate {at}",
+                           show=False)
+            want = boot_pallas.blind_rotate_mega_plain(p, bsk_br, acc, a, q_lwe)
+            errors.compare("blind_rotate_mega_wide",
+                           boot_pallas.blind_rotate_mega(p, bsk_br, acc, a, q_lwe), want,
+                           f"blind_rotate_mega {at}", show=False)
+            errors.compare("rotate_step_br_wide",
+                           boot_pallas.blind_rotate_fused(p, bsk_br, acc, a, q_lwe), want,
+                           f"rotate_step_br x {steps} launches {at}", show=False)
+    print(f"[radix] kernels 3, 4 and 5 at (N, dG2) = ({p.N}, {p.digits_g2}), batch 1, 8 and "
+          f"{sms + 1}, q_lwe = q and 2q: byte-equal to their plain versions")
+
+
+@contextlib.contextmanager
+def counted_bootstraps():
+    """Counts funcboot.bootstrap_func's calls (one blind rotation each) and
+    keeps their input ciphertexts."""
+    from fhe_tpu_torch.tfhe import funcboot
+    inputs = []
+    inner = funcboot.bootstrap_func
+
+    def counted(params, key, ct, *args, **kwargs):
+        inputs.append(ct)
+        return inner(params, key, ct, *args, **kwargs)
+    funcboot.bootstrap_func = counted
+    try:
+        yield inputs
+    finally:
+        funcboot.bootstrap_func = inner
+
+
+def past_margin_rows(fc, inputs) -> set:
+    """The rows (axis 0 of a radix op's batch) on which some bootstrap's
+    input phase lies past its slot's lower margin.  Every radix LUT input
+    has its message m at m q/p + beta + e (beta added by eval_func, q/p =
+    512 at TOY_RADIX) and is read right for e in [-beta, q/p - beta); from
+    the phase alone, e_hat = the phase's offset from the nearest m q/p +
+    beta, in [-q/(2p), q/(2p)), equals e while |e| < q/(2p), so e_hat <
+    -beta marks an input read into the slot below."""
+    from fhe_tpu_torch.tfhe import funcboot, lwe
+    rows = set()
+    for ct in inputs:
+        slot = fc.params.q // ct.pt_mod
+        phase = lwe.noise(fc.params, fc.sk, ct, np.zeros(ct.batch_shape, np.int64), p=1)
+        e_hat = (phase.to(torch.int64) - funcboot.BETA + slot // 2) % slot - slot // 2
+        past = (e_hat < -funcboot.BETA).reshape(ct.batch_shape[0], -1).any(dim=1)
+        rows.update(torch.nonzero(past).flatten().tolist())
+    return rows
+
+
+def decrypted(fc, out) -> np.ndarray:
+    """An EncryptedInt's values, or an encrypted bool's, as Python ints."""
+    from fhe_tpu_torch.tfhe import lwe
+    if isinstance(out, lwe.LweCiphertext):
+        return fc.decrypt_bool(out).astype(object)
+    return np.asarray(fc.decrypt(out), dtype=object)
+
+
+def radix_rows(x, rows: list):
+    """The given rows (axis 0) of an EncryptedInt or an LweCiphertext."""
+    from fhe_tpu_torch.tfhe import lwe, radix
+    from fhe_tpu_torch.tfhe.fhevm import EncryptedInt
+    idx = torch.tensor(rows, dtype=torch.int64)
+    ct = x.value.ct if isinstance(x, EncryptedInt) else x
+    sub = lwe.LweCiphertext(a=ct.a[idx.to(ct.a.device)], b=ct.b[idx.to(ct.b.device)],
+                            modulus=ct.modulus, pt_mod=ct.pt_mod)
+    if isinstance(x, EncryptedInt):
+        return EncryptedInt(radix.RadixInt(ct=sub, rp=x.value.rp, max_limb=x.value.max_limb),
+                            x.fhe_type)
+    return sub
+
+
+def radix_run(tag: str, fc, what: str, op, inputs: tuple, want, totals: collections.Counter,
+              plain_check: bool = True):
+    """One counted op, op(fc, *inputs): launches reset before and read
+    after, its CUDA-event time, launches of exactly one rotation kernel (or
+    n of kernel 5) and one of each NTT kernel a bootstrap, and its output
+    against Python integers.  TOY_RADIX's noise makes some LUT reads wrong
+    in fhe_tpu too (ROADMAP queue 3: a packed pair x = a + 4b carries 4
+    times b's noise): an output may be wrong only on a row where some
+    bootstrap's input phase is past its slot's margin
+    (`past_margin_rows`), and with plain_check the first wrong row, run
+    again through the plain rotation on the card, must give the same
+    bytes.  Adds the launches to totals; returns (ms, out, the rows past
+    a margin)."""
+    from fhe_tpu_torch import kernels
+    from fhe_tpu_torch.tfhe.fhevm import EncryptedInt
+    impl = fc.ntt_impl
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with counted_bootstraps() as boot_inputs:
+        ms, out = timed_once(lambda: op(fc, *inputs))
+    launches = kernels.launch_counts()
+    got = decrypted(fc, out)
+    want = np.asarray(want, dtype=object)
+    if got.shape != want.shape:
+        fail(f"{tag} {what}: output of shape {got.shape}, expected {want.shape}")
+    wrong = np.nonzero(got != want)[0].tolist()
+    past = past_margin_rows(fc, boot_inputs)
+    boots = len(boot_inputs)
+    print(f"{tag} {what}: {len(wrong)} wrong of {want.size}"
+          + (f" (rows {wrong[:12]}{' ...' if len(wrong) > 12 else ''})" if wrong else "")
+          + f"; {len(past)} rows with a bootstrap input past its margin; {boots} bootstraps, "
+          f"{ms:.3f} ms  (CUDA events, first call)")
+    unexplained = [r for r in wrong if r not in past]
+    if unexplained:
+        fail(f"{tag} {what}: rows {unexplained[:8]} are wrong with every bootstrap input inside "
+             f"its margin")
+    if wrong and plain_check:
+        with plain_rotation():
+            again = op(fc, *[radix_rows(x, wrong[:1]) for x in inputs])
+        ct, ct_again = (radix_rows(o.value.ct if isinstance(o, EncryptedInt) else o, rows)
+                        for o, rows in ((out, wrong[:1]), (again, [0])))
+        if not (torch.equal(ct.a, ct_again.a) and torch.equal(ct.b, ct_again.b)):
+            fail(f"{tag} {what}: row {wrong[0]} differs from the plain pipeline's")
+        print(f"{tag} {what}: row {wrong[0]} through the plain rotation: the same bytes")
+    per_boot = {WIDE_KERNEL[impl]: fc.params.n if impl == "fused" else 1, "ntt_forward": 1,
+                "ntt_inverse": 1}
+    for name, count in launches.items():
+        if count != boots * per_boot.get(name, 0):
+            fail(f"{tag} {what}: {count} {name} launches, expected {boots * per_boot.get(name, 0)}")
+    totals.update(launches)
+    return ms, out, past
+
+
+def radix_phase(dev, errors: Errors, card: str) -> tuple[dict, dict]:
+    """The [radix] phase: TOY_RADIX keyed at full width on the card;
+    returns the wide kernels' launches in its counted runs and their times
+    (for the kernels line)."""
+    from fhe_tpu_torch.tfhe import funcboot, lwe, shortint
+    from fhe_tpu_torch.tfhe.fhevm import FheContext, FheType
+    t_phase = time.perf_counter()
+    tag = "[radix]"
+    t0 = time.perf_counter()
+    fc = FheContext.create(RADIX_SET, rng=SEED, device=dev)
+    torch.cuda.synchronize()
+    p = fc.params
+    print(f"{tag} {RADIX_SET} (N = {p.N}, n = {p.n}, q = {p.q}, Q = {p.Q}, dG2 = "
+          f"{p.digits_g2}) keygen (ksk {tuple(fc.key.ksk.a.shape)}, bsk {tuple(fc.key.bsk.shape)})"
+          f" on {dev}: {time.perf_counter() - t0:.3f} s (host clock)")
+    check_wide_kernels(dev, p, errors)
+    totals = collections.Counter()
+    rng = np.random.default_rng(SEED + 11)
+    E8, E16, E64 = FheType.EUINT8, FheType.EUINT16, FheType.EUINT64
+    a, b = rng.integers(0, 256, size=(2, RADIX_PAIRS)).astype(object)
+    b[:32] = a[:32]                                  # equal pairs for eq
+    b[32:64:4] = 0                                   # zeros for is_zero
+    sel = rng.integers(0, 2, size=RADIX_PAIRS)
+    xa, xb = fc.encrypt(a, E8, rng), fc.encrypt(b, E8, rng)
+    cond = fc.ctx.encrypt(fc.sk, sel, rng, p=16)
+    # op -> (call on (fc, *inputs), inputs, Python integers, plain check)
+    ops = {"add": (lambda f, x, y: f.add(x, y), (xa, xb), (a + b) % 256),
+           "sub": (lambda f, x, y: f.sub(x, y), (xa, xb), (a - b) % 256),
+           "mul": (lambda f, x, y: f.mul(x, y), (xa, xb), (a * b) % 256),
+           "lt": (lambda f, x, y: f.lt(x, y), (xa, xb), (a < b).astype(int)),
+           "eq": (lambda f, x, y: f.eq(x, y), (xa, xb), (a == b).astype(int)),
+           "and_": (lambda f, x, y: f.and_(x, y), (xa, xb), a & b),
+           "xor": (lambda f, x, y: f.xor(x, y), (xa, xb), a ^ b),
+           "not_": (lambda f, x: f.not_(x), (xa,), 255 - a),
+           "select": (lambda f, c, x, y: f.select(c, x, y), (cond, xa, xb),
+                      np.where(sel == 1, a, b)),
+           "min": (lambda f, x, y: f.min(x, y), (xa, xb), np.minimum(a, b)),
+           "shl 3": (lambda f, x: f.shl(x, 3), (xa,), (a * 8) % 256),
+           "neg": (lambda f, x: f.neg(x), (xa,), (-a) % 256),
+           "is_zero": (lambda f, y: f.is_zero(y), (xb,), (b == 0).astype(int)),
+           "add_scalar 77": (lambda f, x: f.add_scalar(x, 77), (xa,), (a + 77) % 256),
+           "cast to euint16": (lambda f, x: f.cast(x, E16), (xa,), a)}
+    ms, outs = {}, {}
+    for what, (op, inputs, want) in ops.items():
+        ms[what], outs[what], _ = radix_run(tag, fc, f"euint8 {what} on {RADIX_PAIRS} pairs", op,
+                                            inputs, want, totals)
+    d = RADIX_DIV_PAIRS
+    ad, bd = a[:d], b[:d].copy()
+    bd[0] = 0                                        # by zero: q all ones, r = a
+    xad, xbd = fc.encrypt(ad, E8, rng), fc.encrypt(bd, E8, rng)
+    qd = np.array([255 if y == 0 else x // y for x, y in zip(ad, bd)], dtype=object)
+    rd = np.array([x if y == 0 else x % y for x, y in zip(ad, bd)], dtype=object)
+    # (the plain rotation would take minutes for a division's 512 bootstraps)
+    ms["div"], _, _ = radix_run(tag, fc, f"euint8 div on {d} pairs (one by zero)",
+                                lambda f, x, y: f.div(x, y), (xad, xbd), qd, totals,
+                                plain_check=False)
+    ms["rem"], _, _ = radix_run(tag, fc, f"euint8 rem on {d} pairs", lambda f, x, y: f.rem(x, y),
+                                (xad, xbd), rd, totals, plain_check=False)
+
+    # the confidential transfer of fhEVM token contracts, euint64 (32 limbs:
+    # Kogge-Stone carries)
+    k = RADIX_ACCOUNTS
+    frm = np.array([int(v) for v in rng.integers(0, 2**62, size=k)], dtype=object) * 3
+    amt = np.array([int(v) for v in rng.integers(0, 2**62, size=k)], dtype=object) * 2
+    amt[::3] = frm[::3]                              # exactly the balance
+    to = np.array([int(v) for v in rng.integers(0, 2**63, size=k)], dtype=object)
+    xf, xm, xt = (fc.encrypt(v, E64, rng) for v in (frm, amt, to))
+    ok = frm >= amt
+    radix_run(tag, fc, f"euint64 ge on {k} accounts", lambda f, x, y: f.ge(x, y), (xf, xm),
+              ok.astype(int), totals)
+    state = {}
+
+    def transfer(f, x_from, x_amt, x_to):
+        state["ok"] = f.ge(x_from, x_amt)
+        state["to"] = f.select(state["ok"], f.add(x_to, x_amt), x_to)
+        return f.select(state["ok"], f.sub(x_from, x_amt), x_from)
+    # (its ge is checked against the plain rotation above; the whole
+    # transfer's some 230 bootstraps would take minutes there)
+    ms["transfer"], _, past = radix_run(
+        tag, fc, f"euint64 transfer on {k} accounts (from')", transfer, (xf, xm, xt),
+        np.where(ok, frm - amt, frm), totals, plain_check=False)
+    for what, out, want in (("ok = ge(from, amt)", state["ok"], ok.astype(int)),
+                            ("to'", state["to"], np.where(ok, (to + amt) % 2**64, to))):
+        wrong = np.nonzero(decrypted(fc, out) != np.asarray(want, dtype=object))[0].tolist()
+        print(f"{tag} euint64 transfer {what}: {len(wrong)} wrong of {k} ({int(ok.sum())} "
+              f"transfers go through)")
+        if any(r not in past for r in wrong):
+            fail(f"{tag} euint64 transfer {what}: a row is wrong with every bootstrap input "
+                 f"inside its margin")
+
+    x1, y1 = fc.encrypt(a[:1], E8, rng), fc.encrypt(b[:1], E8, rng)
+    radix_run(tag, fc, "single euint8 add (batch 1)", lambda f, x, y: f.add(x, y), (x1, y1),
+              (a[:1] + b[:1]) % 256, totals)
+    single_add = time_ms(lambda: fc.add(x1, y1), reps=5)
+    radix_run(tag, fc, "single euint8 sub (batch 1)", lambda f, x, y: f.sub(x, y), (x1, y1),
+              (a[:1] - b[:1]) % 256, totals)
+    single_sub = time_ms(lambda: fc.sub(x1, y1), reps=3)
+
+    # public-key encryption: the dimension-N key, then the ksk switch to (n, q)
+    t0 = time.perf_counter()
+    pk = fc.public_key_gen(rng)
+    torch.cuda.synchronize()
+    pk_s = time.perf_counter() - t0
+    m = rng.integers(0, 256, size=64).astype(object)
+    t0 = time.perf_counter()
+    xp = fc.encrypt_public(m, E8, rng)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    xs64 = fc.encrypt(a[:64], E8, rng)
+    radix_run(tag, fc, "encrypt_public of 64 euint8", lambda f, x: x, (xp,), m, totals)
+    radix_run(tag, fc, "add(public-key euint8, secret-key euint8) on 64",
+              lambda f, x, y: f.add(x, y), (xp, xs64), (m + a[:64]) % 256, totals)
+    print(f"{tag} public_key_gen (A {tuple(pk.A.shape)}): {pk_s:.3f} s; encrypt_public of 64 "
+          f"euint8 (256 limbs): {enc_s * 1e3:.3f} ms (host clock, with its host draws)")
+
+    # every ntt_impl gives the same ciphertexts
+    for impl in IMPLS[1:]:
+        c = FheContext(**{**vars(fc), "ctx": dataclasses.replace(fc.ctx, ntt_impl=impl)})
+        for what in ("add", "lt"):
+            op, inputs, want = ops[what]
+            _, out, _ = radix_run(f"{tag} ntt_impl={impl}", c, f"euint8 {what} on {RADIX_PAIRS} "
+                                  f"pairs", op, inputs, want, totals, plain_check=False)
+            ref = outs[what].value.ct if what == "add" else outs[what]
+            got = out.value.ct if what == "add" else out
+            if not (torch.equal(got.a, ref.a) and torch.equal(got.b, ref.b)):
+                fail(f"{tag} euint8 {what}: ntt_impl={impl} output differs from ntt_impl=None")
+        print(f"{tag} ntt_impl={impl}: euint8 add and lt identical to ntt_impl=None")
+    print(f"{tag} launches of the counted runs: {dict(totals)}")
+    for name in WIDE_KERNEL.values():
+        if totals[name] <= 0:
+            fail(f"{tag} kernel {name} was not launched")
+    for name in (*ACC_KERNEL.values(), *LIMB_KERNELS):
+        if totals[name]:
+            fail(f"{tag} kernel {name} launched {totals[name]} times at TOY_RADIX")
+
+    # times (CUDA events)
+    print(f"{tag} euint8 at {RADIX_PAIRS} pairs, ops/s: " + ", ".join(
+        f"{w} {RADIX_PAIRS / ms[w] * 1e3:.1f}" for w in ("add", "sub", "mul", "lt")) +
+        f"; euint64 transfers/s at {k}: {k / ms['transfer'] * 1e3:.2f}; single euint8 add "
+        f"latency {single_add:.3f} ms (lazy: no bootstrap), single euint8 sub {single_sub:.3f} ms"
+        f"  ({card})")
+    sp = shortint.ShortIntParams(2, 2)
+    vals = rng.integers(0, 16, size=BATCH)
+    limbs = shortint.encrypt(p, sp, fc.sk, vals, rng)
+    carry = shortint.luts(p, sp)["carry"]
+    lut = lambda: shortint.apply_lut(p, fc.key, limbs, carry, sp)
+    lut_ms = time_ms(lut, reps=2)
+    out = lut()
+    wrong = int((shortint.decrypt(p, sp, fc.sk, out) != vals // 4).sum())
+    noise = lwe.noise(p, fc.sk, out, vals // 4, p=sp.p).to(torch.float64)
+    sigma = float(noise.std())
+    # a packed pair a + 4b carries sqrt(1 + 4^2) times one output's noise,
+    # and is read wrong past -beta
+    packed = 0.5 * math.erfc(funcboot.BETA / (math.sqrt(17) * sigma) / math.sqrt(2))
+    print(f"{tag} apply_lut (carry, 2 bootstraps at 2q) over {BATCH} limb ciphertexts: "
+          f"{lut_ms:.3f} ms = {2 * BATCH / lut_ms * 1e3:.1f} bootstraps/s, {wrong} wrong; its "
+          f"output noise std {sigma:.3f}, largest |e| {int(noise.abs().max())} (slot q/p = "
+          f"{p.q // sp.p}, margin beta = {funcboot.BETA}): a packed pair of such outputs is read "
+          f"wrong with probability {packed:.4f}  ({card})")
+    if wrong:
+        fail(f"{tag} apply_lut over fresh limbs does not decrypt right")
+
+    result = time_wide_kernels(dev, fc, errors, card)
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return {name: totals[name] for name in WIDE_KERNEL.values()}, result
+
+
+def time_wide_kernels(dev, fc, errors: Errors, card: str) -> dict:
+    """Kernels 3-5 on the wide step at [BATCH, 2, 8192] x 64 steps (kernel
+    5: a launch, over its n launches) on the TOY_RADIX key, beside their
+    bound and the key's L2 traffic; their plain versions timed (and the
+    kernels held to them) at batch RADIX_PLAIN_BATCH."""
+    from fhe_tpu_torch.tfhe import boot, boot_pallas
+    p, key = fc.params, fc.key
+    gen = np.random.default_rng(SEED + 12)
+    int_peak = int_multiply_peak(dev)
+    acc = _residues(gen, p.Q, (BATCH, 2, p.N), dev)
+    msk = _residues(gen, p.q, (BATCH, p.n), dev)
+    small = RADIX_PLAIN_BATCH
+    xs, ms_ = acc[:small].contiguous(), msk[:small].contiguous()
+    pows = boot._psi_powers_mont_words(p.N, p.Q, dev)
+    tables = 4 * 4 * p.N                            # the four NTT tables
+    rot_bytes = _nbytes(acc, acc, key.bsk, msk, pows) + tables
+    step_bytes = _nbytes(acc, acc, key.bsk[0], msk[:, 0], pows) + tables
+    muls = step_multiplies(p) * BATCH
+    key_bytes = key.bsk.numel() * 4                 # read by every ciphertext (C = 1)
+    bsk_br = key.bsk_br
+    p_ms, want_nat = timed_once(lambda: boot.blind_rotate_plain(p, key.bsk, xs, ms_))
+    p_ms_br, want_br = timed_once(lambda: boot_pallas.blind_rotate_mega_plain(p, bsk_br, xs, ms_))
+    p_ms_step, _ = timed_once(lambda: boot_pallas.rotate_step_br_plain(p, bsk_br[0], xs,
+                                                                       ms_[:, 0]))
+    # name -> (kernel call, plain ms, plain output, launches a call, bytes, multiplies)
+    cases = {
+        "blind_rotate_wide": (lambda x, m: boot.blind_rotate(p, key, x, m), p_ms, want_nat, 1,
+                              rot_bytes, muls * p.n),
+        "blind_rotate_mega_wide": (lambda x, m: boot_pallas.blind_rotate_mega(p, bsk_br, x, m),
+                                   p_ms_br, want_br, 1, rot_bytes, muls * p.n),
+        "rotate_step_br_wide": (lambda x, m: boot_pallas.blind_rotate_fused(p, bsk_br, x, m),
+                                p_ms_step, want_br, p.n, step_bytes, muls),
+    }
+    result = {}
+    for name, (kern, plain_ms, want, launches, nbytes, nmuls) in cases.items():
+        errors.compare(name, kern(xs, ms_), want,
+                       f"{name} [{small}, 2, {p.N}] x {p.n} steps ({launches} launch{'es' * (launches > 1)}), "
+                       f"TOY_RADIX key")
+        small_ms = time_ms(lambda: kern(xs, ms_), reps=3)
+        k_ms = time_ms(lambda: kern(acc, msk), reps=3) / launches
+        b_ms, b_by = bound(nbytes, nmuls, int_peak)
+        what = (f"[{BATCH}, 2, {p.N}] x {p.n} steps" if launches == 1 else
+                f"[{BATCH}, 2, {p.N}] x 1 step (over {launches} launches)")
+        print(f"[time] {name} {what}, TOY_RADIX key: kernel {k_ms:.3f} ms, plain {plain_ms:.3f} ms "
+              f"at batch {small} ({'one step' if launches > 1 else 'all steps'}); all {p.n} steps "
+              f"at batch {small}: kernel {small_ms:.3f} ms; bound {b_ms:.3f} ms by {b_by} "
+              f"({nbytes} bytes, {nmuls} multiplies), kernel at {b_ms / k_ms:.3f} of its bound; "
+              f"the key read from L2 by every ciphertext: {key_bytes / 2**20:.0f} MiB, "
+              f"{key_bytes * BATCH / launches / 2**30:.1f} GiB a launch at batch {BATCH}  ({card})")
+        result[name] = (k_ms, plain_ms, b_ms, b_by)
+    return result
+
+
 def time_ms(fn, reps: int) -> float:
     """Median CUDA-event time of fn() in ms; the caller has warmed fn up."""
     times = []
@@ -1357,8 +1757,11 @@ def main() -> int:
     acc_phase(dev, errors, card)
     rns_launches, rns_times = rns_phase(dev, errors, card)
     launches.update({name: rns_launches[name] for name in LIMB_KERNELS})
+    radix_launches, radix_times = radix_phase(dev, errors, card)
+    launches.update(radix_launches)
     times = timings(dev, ctx, key, cts, errors, card)
     times.update(rns_times)
+    times.update(radix_times)
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errors.max[name],
              "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],

@@ -14,8 +14,10 @@ import torch
 
 from .tfhe.acc import DmKey, LmkcdeyKey
 from .tfhe.lwe import LweCiphertext, LwePublicKey, LweSecretKey, LweSwitchingKey
+from .tfhe.radix import RadixInt, RadixParams
 from .tfhe.rgsw import BootstrapKey
 from .tfhe.rgsw_rns import RnsKey
+from .tfhe.shortint import ShortIntParams
 
 
 def _residues(x, name: str, device) -> torch.Tensor:
@@ -39,6 +41,20 @@ def ciphertext(a, b, modulus: int, pt_mod: int = 4, device="cuda") -> LweCiphert
     """fhe_tpu LweCiphertext (a, b, modulus, pt_mod) -> LweCiphertext."""
     return LweCiphertext(a=_residues(a, "a", device), b=_residues(b, "b", device),
                          modulus=int(modulus), pt_mod=int(pt_mod))
+
+
+def radix_int(a, b, modulus: int, pt_mod: int, message_bits: int, carry_bits: int,
+              num_limbs: int, max_limb: int, device="cuda") -> RadixInt:
+    """fhe_tpu RadixInt (ct.a [..., L, n], ct.b [..., L], ct.modulus,
+    ct.pt_mod; rp.limb.message_bits, rp.limb.carry_bits, rp.num_limbs;
+    max_limb) -> RadixInt."""
+    rp = RadixParams(ShortIntParams(int(message_bits), int(carry_bits)), int(num_limbs))
+    ct = ciphertext(a, b, modulus, pt_mod, device)
+    if ct.a.ndim < 2 or ct.a.shape[-2] != rp.num_limbs or ct.b.shape[-1] != rp.num_limbs:
+        raise ValueError(f"a radix ciphertext of {rp.num_limbs} limbs is a [..., "
+                         f"{rp.num_limbs}, n], b [..., {rp.num_limbs}]; got a "
+                         f"{tuple(ct.a.shape)}, b {tuple(ct.b.shape)}")
+    return RadixInt(ct=ct, rp=rp, max_limb=int(max_limb))
 
 
 def public_key(A, v, modulus: int, device="cuda") -> LwePublicKey:

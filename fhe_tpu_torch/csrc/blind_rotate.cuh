@@ -32,6 +32,14 @@
 // Python, with programmatic dependent launch: a step's blocks are launched
 // behind the previous step and wait before their first global read.  No
 // CUDA graph.
+//
+// From N = 2^kWideLogN on (TOY_RADIX's (8192, 10)) the same three kernels
+// are wide_scan_kernel in both orders and wide_step_kernel, on the step of
+// cggi_step_wide.cuh: one ciphertext a block of N/8 threads, the
+// accumulator in shared memory (192 KiB a block in all), the tables read
+// from global memory.  The
+// launchers pick them at compile time (scan_of, step_of), so the kernels
+// of the narrower shapes are compiled as before.
 #pragma once
 
 #include <cstdint>
@@ -40,6 +48,7 @@
 
 #include "cggi_launch.h"
 #include "cggi_step.cuh"
+#include "cggi_step_wide.cuh"
 
 namespace fhe {
 namespace cggi {
@@ -156,26 +165,131 @@ step_kernel(const ScanArgs args, const uint32_t* __restrict__ acc_in,
   }
 }
 
+// The wide whole scan (N >= 2^kWideLogN): one ciphertext a block, its
+// accumulator in shared memory for the n steps (cggi_step_wide.cuh).
+template <int LogN, int Dg2, bool kNatural>
+__global__ void __launch_bounds__(kWideThreads<LogN>, 1)
+wide_scan_kernel(const ScanArgs args) {
+  constexpr int N = 1 << LogN;
+  constexpr size_t kStepWords = static_cast<size_t>(4) * Dg2 * N;
+  extern __shared__ uint32_t smem[];
+  uint32_t* acc = smem;          // [2, N], bit-reversed EVAL order
+  uint32_t* work = smem + 2 * N;  // [4, N]: the exchange buffer, then u
+  const int g = threadIdx.x;
+  const size_t b = blockIdx.x;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const uint32_t* src = args.acc_in + (b * 2 + p) * N;
+    uint32_t v[8];
+    if (kNatural) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = src[__brev(8 * g + j) >> (32 - LogN)];
+    } else {
+      load8(src + 8 * g, v);
+    }
+    store8(acc + p * N + 8 * g, v);
+  }
+  const Tables t{args.fwd_w, args.fwd_ws, args.inv_w, args.inv_ws, args.pows};
+  const uint32_t* a = args.a + b * args.n_steps;
+  for (int i = 0; i < args.n_steps; ++i) {
+    uint32_t idx_pos, idx_neg;
+    indices<LogN>(args, a[i], idx_pos, idx_neg);
+    step_wide<LogN, Dg2>(acc, work, t, args.bsk + i * kStepWords, idx_pos, idx_neg, args.k, g);
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    uint32_t* dst = args.acc_out + (b * 2 + p) * N;
+    uint32_t v[8];
+    load8(acc + p * N + 8 * g, v);
+    if (kNatural) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[__brev(8 * g + j) >> (32 - LogN)] = v[j];
+    } else {
+      store8(dst + 8 * g, v);
+    }
+  }
+}
+
+// Step i of the wide rotation: acc_in -> acc_out, bit-reversed order.
+template <int LogN, int Dg2>
+__global__ void __launch_bounds__(kWideThreads<LogN>, 1)
+wide_step_kernel(const ScanArgs args, const uint32_t* __restrict__ acc_in,
+                 uint32_t* __restrict__ acc_out, int i) {
+  constexpr int N = 1 << LogN;
+  constexpr size_t kStepWords = static_cast<size_t>(4) * Dg2 * N;
+  extern __shared__ uint32_t smem[];
+  uint32_t* acc = smem;
+  uint32_t* work = smem + 2 * N;
+  const int g = threadIdx.x;
+  const size_t b = blockIdx.x;
+  // as step_kernel: wait for the kernel before it before any global read
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  uint32_t v[8];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    load8(acc_in + (b * 2 + p) * N + 8 * g, v);
+    store8(acc + p * N + 8 * g, v);
+  }
+  uint32_t idx_pos, idx_neg;
+  indices<LogN>(args, args.a[b * args.n_steps + i], idx_pos, idx_neg);
+  const Tables t{args.fwd_w, args.fwd_ws, args.inv_w, args.inv_ws, args.pows};
+  step_wide<LogN, Dg2>(acc, work, t, args.bsk + i * kStepWords, idx_pos, idx_neg, args.k, g);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    load8(acc + p * N + 8 * g, v);
+    store8(acc_out + (b * 2 + p) * N + 8 * g, v);
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
+// The kernels, threads and blocks of a launch at one shape and C: the wide
+// kernels from N = 2^kWideLogN on (one ciphertext a block), else the
+// others.  The wide kernels take C = 1 only.
+template <int LogN, int Dg2, int C, bool kNatural>
+constexpr auto scan_of() {
+  if constexpr (kWide<LogN>) {
+    return wide_scan_kernel<LogN, Dg2, kNatural>;
+  } else {
+    return scan_kernel<LogN, Dg2, C, kNatural>;
+  }
+}
+
+template <int LogN, int Dg2, int C>
+constexpr auto step_of() {
+  if constexpr (kWide<LogN>) {
+    return wide_step_kernel<LogN, Dg2>;
+  } else {
+    return step_kernel<LogN, Dg2, C>;
+  }
+}
+
+template <int LogN, int C>
+constexpr int kBlockThreads = kWide<LogN> ? kWideThreads<LogN> : kThreads<LogN, C>;
+
+template <int LogN, int C>
+constexpr bool kTakesC = !kWide<LogN> || C == 1;
+
 template <int LogN, int Dg2, int C, bool kNatural>
 int launch_scan(const ScanArgs& args, cudaStream_t stream) {
-  const auto kernel = scan_kernel<LogN, Dg2, C, kNatural>;
+  if (!kTakesC<LogN, C>) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = scan_of<LogN, Dg2, C, kNatural>();
   const size_t smem = smem_bytes(kNatural ? kScanNatural : kScanBitReversed, 1 << LogN, Dg2, C);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (args.B + C - 1) / C;
-  if (blocks > 0) kernel<<<blocks, kThreads<LogN, C>, smem, stream>>>(args);
+  if (blocks > 0) kernel<<<blocks, kBlockThreads<LogN, C>, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int LogN, int Dg2, int C>
 int launch_steps(const ScanArgs& args, uint32_t* buf0, uint32_t* buf1, cudaStream_t stream) {
-  const auto kernel = step_kernel<LogN, Dg2, C>;
+  if (!kTakesC<LogN, C>) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = step_of<LogN, Dg2, C>();
   const size_t smem = smem_bytes(kStep, 1 << LogN, Dg2, C);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -190,7 +304,7 @@ int launch_steps(const ScanArgs& args, uint32_t* buf0, uint32_t* buf1, cudaStrea
   attr.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads<LogN, C>);
+  cfg.blockDim = dim3(kBlockThreads<LogN, C>);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &attr;
@@ -216,13 +330,16 @@ int occupancy_of(Kernel kernel, int threads, size_t smem, int* blocks) {
 
 template <int LogN, int Dg2, int C>
 int occupancy(int kind, int* blocks) {
+  if (!kTakesC<LogN, C>) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(kind, 1 << LogN, Dg2, C);
-  constexpr int kT = kThreads<LogN, C>;
-  if (kind == kScanNatural) return occupancy_of(scan_kernel<LogN, Dg2, C, true>, kT, smem, blocks);
-  if (kind == kScanBitReversed) {
-    return occupancy_of(scan_kernel<LogN, Dg2, C, false>, kT, smem, blocks);
+  constexpr int kT = kBlockThreads<LogN, C>;
+  if (kind == kScanNatural) {
+    return occupancy_of(scan_of<LogN, Dg2, C, true>(), kT, smem, blocks);
   }
-  return occupancy_of(step_kernel<LogN, Dg2, C>, kT, smem, blocks);
+  if (kind == kScanBitReversed) {
+    return occupancy_of(scan_of<LogN, Dg2, C, false>(), kT, smem, blocks);
+  }
+  return occupancy_of(step_of<LogN, Dg2, C>(), kT, smem, blocks);
 }
 
 }  // namespace cggi

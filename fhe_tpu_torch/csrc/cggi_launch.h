@@ -38,11 +38,21 @@ struct ScanArgs {
 // Kernel kinds, for occupancy queries.
 enum Kind { kScanNatural = 0, kScanBitReversed = 1, kStep = 2 };
 
+// From N = 2^kWideLogN on, the kernels run the wide step (cggi_step_wide.cuh,
+// one ciphertext a block, C = 1): cggi_step.cuh's buffers and registers do
+// not fit a block there.
+constexpr int kWideLogN = 12;
+template <int LogN>
+constexpr bool kWide = LogN >= kWideLogN;
+
 // Dynamic shared memory of one block: the whole scan holds the four NTT
 // tables and the [2N] monomial table besides the exchange buffers
 // ([2, N] and [dG2, N] per ciphertext); the single step reads the tables
-// from global memory.
+// from global memory.  The wide step holds the accumulator, one exchange
+// buffer and the digits' source u ([2, N] each) and reads the tables from
+// global memory.
 inline size_t smem_bytes(int kind, int N, int dg2, int C) {
+  if (N >= (1 << kWideLogN)) return static_cast<size_t>(6) * N * sizeof(uint32_t);
   const size_t bufs = static_cast<size_t>(2 + dg2) * N * C;
   const size_t tables = kind == kStep ? 0 : static_cast<size_t>(6) * N;
   return (bufs + tables) * sizeof(uint32_t);

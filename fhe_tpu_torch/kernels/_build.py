@@ -99,6 +99,14 @@ def ntt_sizes() -> tuple[int, ...]:
 
 
 @functools.lru_cache(maxsize=None)
+def wide_n() -> int:
+    """The N from which the blind-rotation kernels run the wide step (one
+    ciphertext a block), from `csrc/cggi_launch.h` (no build needed)."""
+    text = (CSRC / "cggi_launch.h").read_text()
+    return 1 << int(re.search(r"constexpr int kWideLogN = (\d+);", text).group(1))
+
+
+@functools.lru_cache(maxsize=None)
 def max_limbs() -> int:
     """The most limbs a limb-stacked NTT launch takes, from
     `csrc/ntt_launch.h` (no build needed)."""

@@ -15,7 +15,7 @@ for a parameter set the kernels are not built for: an (N, dG2) outside
 kernels' lazy reduction keeps values below 4Q < 2^32), and for an LWE
 modulus `q_lwe` of the mask (params.q unless the caller gives the
 ciphertext's own, as functional bootstrapping does) that is not a power
-of two dividing 2N.  A block holds `choose_c(B, SMs)` ciphertexts.  The
+of two dividing 2N.  A block holds `choose_c(B, SMs, N)` ciphertexts.  The
 wrappers launch on the current stream without synchronising and add one
 to their entry of `LAUNCHES` per kernel launch.
 """
@@ -29,9 +29,9 @@ import torch
 
 from ..math import ntt as nttmod
 from . import _build
-from ._build import shapes  # noqa: F401  (the instantiated (N, dG2), re-exported)
+from ._build import shapes, wide_n  # noqa: F401  (re-exported)
 
-LAUNCHES = {"blind_rotate": 0}
+LAUNCHES = {"blind_rotate": 0, "blind_rotate_wide": 0}
 MAX_Q = 1 << 30
 KINDS = {"natural": 0, "bit-reversed": 1, "step": 2}
 
@@ -56,11 +56,19 @@ def check_q_lwe(params, q_lwe: int) -> None:
                          f"2N = {two_n}")
 
 
-def choose_c(batch: int, sm_count: int) -> int:
+def choose_c(batch: int, sm_count: int, N: int | None = None) -> int:
     """Ciphertexts per block: 2 (each key word fetched serves two) once the
     batch gives every SM two blocks of two, else 1 (more blocks, and batch
-    1 is the latency path)."""
+    1 is the latency path).  Always 1 at a ring of N >= wide_n(), whose
+    wide step takes one ciphertext a block."""
+    if N is not None and N >= wide_n():
+        return 1
     return 2 if batch >= 4 * sm_count else 1
+
+
+def is_wide(params) -> bool:
+    """True where the kernels run the wide step (N >= wide_n())."""
+    return params.N >= wide_n()
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,7 +121,7 @@ def checked(params, bsk_br, acc, a, psi_pows_mont, q_lwe: int | None):
     require(bsk_br, "bsk_br", (n, 2, dg2, 2, N), dev)
     require(a, "a", (B, n), dev)
     require(psi_pows_mont, "psi_pows_mont", (2 * N,), dev)
-    c = choose_c(B, _sm_count(dev))
+    c = choose_c(B, _sm_count(dev), N)
     plan = nttmod.make_plan(N, params.Q, dev)
     tables = (psi_pows_mont.data_ptr(), plan.fwd_w.data_ptr(), plan.fwd_ws.data_ptr(),
               plan.inv_w.data_ptr(), plan.inv_ws.data_ptr())
@@ -142,7 +150,7 @@ def blind_rotate(params, bsk_br: torch.Tensor, acc: torch.Tensor, a: torch.Tenso
     psi_pows_mont [2N], all int32 on one CUDA device.  Returns the rotated
     accumulator [B, 2, N] in natural EVAL order."""
     out = scan(params, bsk_br, acc, a, psi_pows_mont, natural=True, q_lwe=q_lwe)
-    LAUNCHES["blind_rotate"] += 1
+    LAUNCHES["blind_rotate_wide" if is_wide(params) else "blind_rotate"] += 1
     return out
 
 

@@ -15,7 +15,9 @@ Each wrapper takes the mask's modulus `q_lwe` (default params.q; a power
 of two dividing 2N, `blind_rotate.check_q_lwe`), checks its inputs once
 (`blind_rotate_fused` once per rotation), launches on the current stream
 without synchronising, and adds to its entry of `LAUNCHES` one per kernel
-launch (n for a rotation of `blind_rotate_fused`).
+launch (n for a rotation of `blind_rotate_fused`); from N = `wide_n()` on
+the wide kernels run (`csrc/cggi_step_wide.cuh`), counted under the same
+names with "_wide".
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .blind_rotate import checked, scan
+from .blind_rotate import checked, is_wide, scan
 
-LAUNCHES = {"blind_rotate_mega": 0, "rotate_step_br": 0}
+LAUNCHES = {"blind_rotate_mega": 0, "rotate_step_br": 0, "blind_rotate_mega_wide": 0,
+            "rotate_step_br_wide": 0}
 
 
 def blind_rotate_mega(params, bsk_br: torch.Tensor, acc_br: torch.Tensor, a: torch.Tensor,
@@ -35,7 +38,7 @@ def blind_rotate_mega(params, bsk_br: torch.Tensor, acc_br: torch.Tensor, a: tor
     Returns the rotated accumulator [B, 2, N] (bit-reversed EVALUATION
     order, plain form)."""
     out = scan(params, bsk_br, acc_br, a, psi_pows_mont, natural=False, q_lwe=q_lwe)
-    LAUNCHES["blind_rotate_mega"] += 1
+    LAUNCHES["blind_rotate_mega_wide" if is_wide(params) else "blind_rotate_mega"] += 1
     return out
 
 
@@ -53,7 +56,7 @@ def blind_rotate_fused(params, bsk_br: torch.Tensor, acc_br: torch.Tensor, a: to
         bsk_br.data_ptr(), *tables, acc_br.shape[0], n, params.N, params.digits_g2, c,
         *consts, _build.stream_handle(dev))
     _build.check(rc, "fhe_cggi_steps")
-    LAUNCHES["rotate_step_br"] += n
+    LAUNCHES["rotate_step_br_wide" if is_wide(params) else "rotate_step_br"] += n
     return bufs[(n - 1) % 2]
 
 

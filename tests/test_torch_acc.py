@@ -28,6 +28,10 @@ from fhe_tpu_torch.math import primes
 from fhe_tpu_torch.parallel import BatchFlags, eval_bin_gate_batch
 from fhe_tpu_torch.tfhe import BinFheContext, DmKey, Gate, LmkcdeyKey, acc, make_params, rgsw
 
+# One pytest-xdist worker a core: torch's intra-op thread pool in each
+# worker would oversubscribe the cores and slow the whole suite.
+torch.set_num_threads(1)
+
 SETS = {"AP": ("TOY", "AP"), "LMKCDEY": ("TOY_LMKCDEY", None)}
 TRUTH = {
     "AND": lambda a, b: a & b,

@@ -12,6 +12,10 @@ from fhe_tpu_torch import BinFheContext
 from fhe_tpu_torch.parallel import (BatchFlags, BatchFuture, BatchResult, bootstrap_batch,
                                     eval_bin_gate_batch, eval_func_batch)
 
+# One pytest-xdist worker a core: torch's intra-op thread pool in each
+# worker would oversubscribe the cores and slow the whole suite.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def toy():

@@ -24,6 +24,10 @@ from fhe_tpu_torch.tfhe import boot as tboot
 from fhe_tpu_torch.tfhe import make_params as t_make_params
 from fhe_tpu_torch.tfhe import rgsw as trgsw
 
+# One pytest-xdist worker a core: torch's intra-op thread pool in each
+# worker would oversubscribe the cores and slow the whole suite.
+torch.set_num_threads(1)
+
 
 def _i32(x):
     return torch.from_numpy(np.asarray(x).astype(np.int64)).to(torch.int32)

@@ -31,6 +31,10 @@ from fhe_tpu_torch.tfhe import BinFheContext, boot, rgsw
 from fhe_tpu_torch.tfhe import boot_pallas as tbp
 from fhe_tpu_torch.tfhe import make_params as t_make_params
 
+# One pytest-xdist worker a core: torch's intra-op thread pool in each
+# worker would oversubscribe the cores and slow the whole suite.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMPLS = ["mega", "fused"]
 
@@ -189,7 +193,7 @@ def test_port_gate_leaves_jax_unimported():
         assert not [m for m in sys.modules if m == "fhe_tpu" or m.startswith("fhe_tpu.")]
         print("ok")
     """)
-    env = {**os.environ, "PYTHONPATH": REPO}
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -112,7 +112,8 @@ def test_blind_rotate_br_kernels_match_plain(name, steps, cuda, gen):
 
 # one GINX parameter set of each instantiated (N, dG2) (csrc/cggi_shapes.h)
 SHAPE_PARAMS = {(512, 4): "TOY", (1024, 4): "STD128", (1024, 6): "STD128_3",
-                (2048, 4): "STD256", (2048, 6): "STD256Q", (2048, 8): "STD256Q_3"}
+                (2048, 4): "STD256", (2048, 6): "STD256Q", (2048, 8): "STD256Q_3",
+                (8192, 10): "TOY_RADIX"}
 
 
 def _rotation_inputs(gen, p, B, steps, dev):
@@ -144,14 +145,21 @@ def _sm_count(dev):
 def test_rotation_kernels_every_shape(shape, B, cuda, gen):
     """Every instantiation, at B = 1, 3 and 8 (one ciphertext per block)
     and at 4 x SMs + 1, the least batch the wrappers run two to a block
-    (one masked lane in the last block); random keys, 4 steps."""
+    (one masked lane in the last block; the wide step of TOY_RADIX's
+    (8192, 10) stays at one); random keys, 4 steps."""
     p = make_params(SHAPE_PARAMS[shape])
+    wide = p.N >= kbr.wide_n()
     if B == "4 SMs + 1":
         B = 4 * _sm_count(cuda) + 1
-        assert kbr.choose_c(B, _sm_count(cuda)) == 2
+        assert kbr.choose_c(B, _sm_count(cuda), p.N) == (1 if wide else 2)
     else:
-        assert kbr.choose_c(B, _sm_count(cuda)) == 1
+        assert kbr.choose_c(B, _sm_count(cuda), p.N) == 1
+    before = launch_counts()
     _check_all_orders(p, *_rotation_inputs(gen, p, B, 4, cuda))
+    after = launch_counts()
+    for name in ("blind_rotate", "blind_rotate_mega", "rotate_step_br"):
+        counted, other = (name + "_wide", name) if wide else (name, name + "_wide")
+        assert after[counted] > before[counted] and after[other] == before[other]
 
 
 @pytest.mark.parametrize("name", ["TOY", "STD128"])
@@ -165,9 +173,9 @@ def test_rotation_kernels_odd_batch(name, cuda, gen):
 
 
 def test_rotation_kernels_reject_unsupported_shape(cuda, gen):
-    """No instantiation for TOY_RADIX (N = 8192): ValueError before any
-    launch, on every wrapper."""
-    p = make_params("TOY_RADIX")
+    """No instantiation for TOY_RADIX's ring doubled (N = 16384):
+    ValueError before any launch, on every wrapper."""
+    p = dataclasses.replace(make_params("TOY_RADIX"), N=16384)
     acc, bsk, a = _rotation_inputs(gen, p, 1, 1, cuda)
     pows = boot._psi_powers_mont_words(p.N, p.Q, cuda)
     before = launch_counts()
@@ -175,6 +183,18 @@ def test_rotation_kernels_reject_unsupported_shape(cuda, gen):
         with pytest.raises(ValueError, match="no blind-rotation kernel"):
             fn(p, bsk, acc, a, pows)
     assert launch_counts() == before
+
+
+@pytest.mark.parametrize("q_lwe", ["2N", "N"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_wide_rotation_kernels_match_plain(q_lwe, B, cuda, gen):
+    """Kernels 3, 4 and 5 on the wide step at TOY_RADIX's (8192, 10), the
+    mask mod q = N (a gate, a periodic LUT) or 2q = 2N (an arbitrary LUT),
+    byte-equal to their plain versions; random keys, 4 steps."""
+    p = make_params("TOY_RADIX")
+    q_lwe = {"2N": 2 * p.N, "N": p.N}[q_lwe]
+    acc, bsk, _ = _rotation_inputs(gen, p, B, 4, cuda)
+    _check_all_orders(p, acc, bsk, _residues(gen, q_lwe, (B, 4), cuda), q_lwe)
 
 
 @pytest.mark.parametrize("q_lwe", ["2N", "N", "N/2", "N/4"])
@@ -368,3 +388,30 @@ def test_toy_rns_gate_on_card_matches_cpu(cuda):
     for got, want in zip(outs[1], outs[0]):
         _same(got.a, want.a)
         _same(got.b, want.b)
+
+
+def test_euint8_add_on_card_matches_cpu(cuda):
+    """An euint8 add on the card equals the CPU's byte for byte: TOY_RADIX
+    with n cut to 4, the keys made on the CPU and moved to the card; five
+    lazy adds, the last of which propagates the carries first (a ripple of
+    4 limbs: 7 LUTs, 14 bootstraps, each one launch of the wide kernel 3
+    on the card)."""
+    from fhe_tpu_torch.tfhe.fhevm import FheContext, FheType
+    p = dataclasses.replace(make_params("TOY_RADIX"), n=4)
+    cpu = FheContext.keyed(BinFheContext(params=p, device=torch.device("cpu")), 5)
+    card = FheContext(ctx=BinFheContext(params=p, device=cuda), key=cpu.key.to(cuda),
+                      sk=cpu.sk.to(cuda), sk_n=cpu.sk_n.to(cuda))
+    a, b = np.random.default_rng(6).integers(0, 256, size=(2, 3))
+    outs = []
+    for fc in (cpu, card):
+        s, xb = fc.encrypt(a, FheType.EUINT8, 7), fc.encrypt(b, FheType.EUINT8, 8)
+        before = launch_counts()
+        for _ in range(5):
+            s = fc.add(s, xb)
+        after = launch_counts()
+        assert [int(v) for v in fc.decrypt(s)] == list((a + 5 * b) % 256)
+        assert after["blind_rotate_wide"] - before["blind_rotate_wide"] == (
+            0 if fc is cpu else 14)
+        outs.append(s.value.ct.to("cpu"))
+    _same(outs[1].a, outs[0].a)
+    _same(outs[1].b, outs[0].b)

@@ -29,6 +29,10 @@ from fhe_tpu_torch import convert
 from fhe_tpu_torch.tfhe import (BinFheContext, DmKey, LmkcdeyKey, RnsKey, funcboot, lwe,
                                 make_params)
 
+# One pytest-xdist worker a core: torch's intra-op thread pool in each
+# worker would oversubscribe the cores and slow the whole suite.
+torch.set_num_threads(1)
+
 IMPLS = (None, "mega", "fused")
 # f: Z_4 -> Z_4 of each LUT kind (eprint 2021/1337): f(m + 2) = -f(m),
 # f(m + 2) = f(m), neither

@@ -38,6 +38,10 @@ from fhe_tpu_torch.math import ntt as tntt
 from fhe_tpu_torch.tfhe import (PARAM_SETS, BinFheContext, Gate, LmkcdeyKey, Method, lwe,
                                 make_params, rgsw)
 
+# One pytest-xdist worker a core: torch's intra-op thread pool in each
+# worker would oversubscribe the cores and slow the whole suite.
+torch.set_num_threads(1)
+
 VEC = os.path.join(os.path.dirname(__file__), "vectors")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -241,7 +245,7 @@ def test_port_runs_a_gate_without_jax():
         assert not [m for m in sys.modules if m == "fhe_tpu" or m.startswith("fhe_tpu.")]
         print("ok")
     """)
-    env = {**os.environ, "PYTHONPATH": REPO}
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -18,6 +18,10 @@ from fhe_tpu_torch import convert
 from fhe_tpu_torch.tfhe import lwe as tlwe
 from fhe_tpu_torch.tfhe import make_params as t_make_params
 
+# One pytest-xdist worker a core: torch's intra-op thread pool in each
+# worker would oversubscribe the cores and slow the whole suite.
+torch.set_num_threads(1)
+
 
 # jitted: eager XLA compiles every op of the reference separately
 j_key_switch = jax.jit(jlwe.key_switch, static_argnums=(0, 3))

@@ -24,6 +24,10 @@ from fhe_tpu_torch.math import modmath as tmm
 from fhe_tpu_torch.math import ntt as tntt
 from fhe_tpu_torch.math import primes
 
+# One pytest-xdist worker a core: torch's intra-op thread pool in each
+# worker would oversubscribe the cores and slow the whole suite.
+torch.set_num_threads(1)
+
 VEC = os.path.join(os.path.dirname(__file__), "vectors")
 SIZES = [(512, 27), (1024, 27), (1024, 28)]
 # jitted once per shape: eager XLA compiles every butterfly stage separately

@@ -37,6 +37,10 @@ from fhe_tpu_torch.math import ntt as t_ntt
 from fhe_tpu_torch.parallel import BatchFlags, eval_bin_gate_batch
 from fhe_tpu_torch.tfhe import BinFheContext, Gate, RnsKey, make_params, rgsw_rns
 
+# One pytest-xdist worker a core: torch's intra-op thread pool in each
+# worker would oversubscribe the cores and slow the whole suite.
+torch.set_num_threads(1)
+
 EXACT = ["TOY_RNS", "STD192", "STD192_4", "STD192Q", "STD192Q_3"]
 FAULTY = ["STD128Q_3", "STD128Q_4"]
 TRUTH = {"NAND": lambda a, b: 1 - (a & b), "XOR": lambda a, b: a ^ b}

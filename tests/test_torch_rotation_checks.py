@@ -15,28 +15,37 @@ from fhe_tpu_torch.kernels import blind_rotate as kbr
 from fhe_tpu_torch.tfhe import acc, boot, make_params, rgsw
 from fhe_tpu_torch.tfhe.params import PARAM_SETS
 
+# One pytest-xdist worker a core: torch's intra-op thread pool in each
+# worker would oversubscribe the cores and slow the whole suite.
+torch.set_num_threads(1)
+
 
 def _single_word_sets():
     return [make_params(name) for name in PARAM_SETS if not make_params(name).moduli_rns]
 
 
 def test_instantiated_shapes_are_the_parameter_sets():
-    """Every (N, dG2) of the single-word sets that fits a block's shared
-    memory (N <= 2048; TOY_RADIX's N = 8192 does not) has its kernels."""
-    want = {(p.N, p.digits_g2) for p in _single_word_sets() if p.N <= 2048}
+    """Every (N, dG2) of the single-word sets has its kernels: N <= 2048 on
+    the step of csrc/cggi_step.cuh, TOY_RADIX's (8192, 10) on the wide
+    step (N >= wide_n())."""
+    want = {(p.N, p.digits_g2) for p in _single_word_sets()}
     assert set(kbr.shapes()) == want
     assert len(kbr.shapes()) == len(want)
+    assert (8192, 10) in want
+    assert {N for N, _ in kbr.shapes() if N >= kbr.wide_n()} == {8192}
 
 
 @pytest.mark.parametrize("name", ["TOY", "STD128", "STD128_3", "STD256", "STD256Q",
-                                  "STD256Q_3"])
+                                  "STD256Q_3", "TOY_RADIX"])
 def test_check_params_accepts_every_instantiation(name):
     kbr.check_params(make_params(name))
 
 
 def test_check_params_rejects_unsupported_shape():
-    with pytest.raises(ValueError, match=r"\(N, dG2\) = \(8192, 10\)"):
-        kbr.check_params(make_params("TOY_RADIX"))
+    """A shape no instantiation has: TOY_RADIX at N = 16384, and STD128
+    with dG2 = 2."""
+    with pytest.raises(ValueError, match=r"\(N, dG2\) = \(16384, 10\)"):
+        kbr.check_params(dataclasses.replace(make_params("TOY_RADIX"), N=16384))
     p = make_params("STD128")
     with pytest.raises(ValueError, match=r"\(N, dG2\) = \(1024, 2\)"):
         kbr.check_params(dataclasses.replace(p, digits_g=2))
@@ -87,6 +96,14 @@ def test_mask_modulus_reaches_every_accumulator():
                                          (4096, 2048, 1)])
 def test_choose_c(batch, sms, c):
     assert kbr.choose_c(batch, sms) == c
+
+
+@pytest.mark.parametrize("batch", [1, 527, 528, 4097])
+def test_choose_c_is_one_on_the_wide_step(batch):
+    """The wide step (N >= wide_n(), TOY_RADIX's 8192) takes one ciphertext
+    a block at every batch; the narrower rings keep their choice."""
+    assert kbr.choose_c(batch, 132, 8192) == 1
+    assert kbr.choose_c(batch, 132, 1024) == kbr.choose_c(batch, 132)
 
 
 def test_wrappers_reject_cpu_tensors_before_checking_shape():
