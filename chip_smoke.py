@@ -13,8 +13,9 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    the NTT kernels at every N of csrc/ntt_shapes.h with 1, 3 and
    P x SMs + 1 rows (P rows a block: the last block has masked rows), a
    prime below 2^30 (lazy butterflies) and one in (2^30, 2^31) (canonical),
-   natural and bit-reversed output and the round trip, and N = 2^14
-   refused with a ValueError; the blind rotations at batch 1, 8 and an odd
+   natural and bit-reversed output and the round trip; the limb-stacked
+   ones at N = 2^14 with 1, 3, 11 and 16 limbs; N = 2^15, the first N not
+   built, refused with a ValueError; the blind rotations at batch 1, 8 and an odd
    4097, which the wrappers run two ciphertexts to a block with one masked
    lane;
 4. main path, once per accumulator: STD128 keygen (once), AND and XOR on
@@ -91,7 +92,28 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    ciphertexts as bootstraps/s, and the wide kernels at [4096, 2, 8192] x
    64 steps beside their bound and the key's L2 traffic (80 MiB a
    ciphertext), their plain versions at batch 64;
-9. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+9. [ckks], CKKS with HYBRID key switching (pke/ckks.py, pke/rlwe.py:
+   PyTorch int64 ops around the limb-stacked NTT kernels) at bench.py's
+   config 3 (N = 2^14, Q 8 limbs, P 3, dnum = 3), keyed from SEED on the
+   card: keygen, relin_key_gen, prepare_evk, rotation keys for r = 1 and 5
+   and the conjugation key, encrypt of N/2 slots drawn normal x 0.5; one
+   mul_rescale(ct, ct) with the launch counters reset before and read
+   after (the limb-stacked kernels only, launches printed by shape),
+   decrypted within 1e-2 of z^2 (bench.py:256); mul + relinearize +
+   rescale byte-equal to it; rotate by 1 and 5, conjugate (of a complex
+   z + i z2) and mul_plain + rescale within fhe_tpu's tests/test_ckks.py
+   bound (1e-3 at N = 256) times N / 256, the growth of a fresh
+   ciphertext's slot error, add of two ciphertexts within the sum of their
+   own errors; the same seed through the port on the CPU gives the same
+   mul_rescale, rotate, conjugate, add and mul_plain ciphertexts byte for
+   byte; every row of a batch-32 mul_rescale byte-equal to the single
+   mul_rescale of its ciphertext and decrypted within 1e-2 of its z_i^2;
+   mul_rescale timed at batch 1 and 32 (CUDA events), split by a
+   torch.profiler trace into kernels 1-2, the other kernels (the int64
+   glue) and the time no kernel runs; kernels 1-2 at every shape it
+   launches them at byte-equal to their plain versions, their device time
+   from the trace beside their bound;
+10. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
    the NTT kernels, and their plain versions, with a cold L2 (each call
@@ -183,6 +205,11 @@ RADIX_PAIRS = 256
 RADIX_DIV_PAIRS = 16
 RADIX_ACCOUNTS = 64
 RADIX_PLAIN_BATCH = 64
+# the [ckks] phase: bench.py's config 3 (N = 2^14, 8 limbs of Q, 3 of P),
+# the rotations keyed besides r = 1, and the batch of its second metric
+CKKS_CONFIG = dict(N=1 << 14, num_levels=7, scale_bits=26, dnum=3)
+CKKS_ROTS = (1, 5)
+CKKS_BATCH = 32
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
@@ -282,9 +309,36 @@ def _residues(rng, high, shape, dev):
     return torch.from_numpy(rng.integers(0, high, size=shape)).to(dev, torch.int32)
 
 
+def check_limb_kernels_ckks_width(dev, errors: Errors) -> None:
+    """The limb-stacked kernels at N = 2^14 with 1, 3, 11 (CKKS bench config
+    3's Q u P) and 16 limbs (kMaxLimbs), rows 1, 3 and SMs + 1."""
+    from fhe_tpu_torch.kernels import ntt as kntt
+    from fhe_tpu_torch.lattice import rns
+    from fhe_tpu_torch.math import primes
+    rng = np.random.default_rng(SEED + 5)
+    N = 1 << 14
+    rows_all = (1, 3, kntt.rows_per_block(N) * torch.cuda.get_device_properties(
+        dev).multi_processor_count + 1)
+    for L in (1, 3, 11, kntt.max_limbs()):
+        plan = rns.make_rns_plan(N, primes.ntt_primes(L, N, 1 << 30), dev)
+        for rows in rows_all:
+            x = torch.stack([_residues(rng, q, (rows, N), dev) for q in plan.moduli], dim=1)
+            f = rns.ntt_forward(plan, x)
+            at = f"[{rows}, {L}, {N}]"
+            errors.compare("ntt_forward_limbs", f, rns.forward_plain(plan, x),
+                           f"ntt_forward_limbs {at}", show=False)
+            i = rns.ntt_inverse(plan, f)
+            errors.compare("ntt_inverse_limbs", i, rns.inverse_plain(plan, f),
+                           f"ntt_inverse_limbs {at}", show=False)
+            errors.compare("ntt_inverse_limbs", i, x, f"limb round trip {at}", show=False)
+        print(f"[kernels] limb-stacked ntt N={N} with {L} limbs, rows {rows_all}: forward, "
+              f"inverse, round trip byte-equal to the plain versions")
+
+
 def check_ntt_kernels(dev, errors: Errors) -> None:
     """Kernels 1 and 2 at every instantiated N, rows 1, 3 and P x SMs + 1,
-    q on both sides of 2^30; N = 2^14 refused before any launch."""
+    q on both sides of 2^30; the first N not built (2 x the largest)
+    refused before any launch."""
     from fhe_tpu_torch import kernels
     from fhe_tpu_torch.kernels import ntt as kntt
     from fhe_tpu_torch.math import ntt, primes
@@ -310,7 +364,8 @@ def check_ntt_kernels(dev, errors: Errors) -> None:
             arith = "lazy" if q < kntt.LAZY_Q else "canonical"
             print(f"[kernels] ntt N={N} q={q} ({arith}), rows {rows_all}: forward, forward "
                   f"out_br, inverse, round trip byte-equal to the plain versions")
-    N = 1 << 14
+    check_limb_kernels_ckks_width(dev, errors)
+    N = 2 * max(kntt.sizes())
     plan = ntt.make_plan(N, primes.last_prime(27, 2 * N), dev)
     before = kernels.launch_counts()
     for what, fn in (("forward", ntt.ntt_forward), ("inverse", ntt.ntt_inverse)):
@@ -1556,6 +1611,278 @@ def time_wide_kernels(dev, fc, errors: Errors, card: str) -> dict:
     return result
 
 
+@contextlib.contextmanager
+def limb_launch_shapes():
+    """Records (kernel, [rows, L, N]) of every limb-stacked NTT launch in the
+    block, through the wrappers that rns.ntt_forward / ntt_inverse call."""
+    from fhe_tpu_torch.kernels import ntt as kntt
+    seen = collections.Counter()
+    originals = {"ntt_forward_limbs": kntt.forward_limbs, "ntt_inverse_limbs": kntt.inverse_limbs}
+
+    def recorder(name, fn):
+        def call(plan, x):
+            seen[(name, tuple(x.shape), plan.moduli)] += 1
+            return fn(plan, x)
+        return call
+    kntt.forward_limbs = recorder("ntt_forward_limbs", originals["ntt_forward_limbs"])
+    kntt.inverse_limbs = recorder("ntt_inverse_limbs", originals["ntt_inverse_limbs"])
+    try:
+        yield seen
+    finally:
+        kntt.forward_limbs = originals["ntt_forward_limbs"]
+        kntt.inverse_limbs = originals["ntt_inverse_limbs"]
+
+
+def ckks_values_close(what: str, got: np.ndarray, want: np.ndarray, tol: float) -> None:
+    err = float(np.abs(got - want).max())
+    print(f"[ckks] {what}: max |decrypted - expected| = {err:.3e} (tolerance {tol:g})")
+    if not err < tol:
+        fail(f"[ckks] {what}: error {err} is not below {tol}")
+
+
+def ckks_same(what: str, a, b) -> None:
+    if a.moduli != b.moduli or a.scale != b.scale or not (
+            torch.equal(a.c0.data.cpu(), b.c0.data.cpu()) and
+            torch.equal(a.c1.data.cpu(), b.c1.data.cpu())):
+        fail(f"[ckks] {what}: the ciphertexts differ")
+    print(f"[ckks] {what}: byte-equal ({len(a.moduli)} limbs, scale {a.scale!r})")
+
+
+def ckks_keys(ctx, seed: int):
+    """keygen, the relinearization key, its prepared form, z and its
+    encryption, from seed: the draws the card and the CPU both make."""
+    from fhe_tpu_torch.pke import rlwe
+    rng = np.random.default_rng(seed)
+    sk, pk = ctx.keygen(rng)
+    evk = ctx.relin_key_gen(sk, rng)
+    pevk = rlwe.prepare_evk(ctx.params, evk)
+    z = rng.normal(size=ctx.params.N // 2) * 0.5                 # bench.py:249
+    return rng, sk, pk, evk, pevk, z, ctx.encrypt(pk, z, rng)
+
+
+def ckks_ops(ctx, rng, sk, pk, ct, z, w):
+    """Rotation keys for CKKS_ROTS, the conjugation key, a second ciphertext
+    (of z2) and one of the complex z + i z2, drawn from rng after
+    ckks_keys' draws; then rotate, add, mul_plain + rescale of ct and
+    conjugate of the complex one (a real input is its own conjugate):
+    ({op: ciphertext}, ct2, z2)."""
+    rot = ctx.rotation_key_gen(sk, CKKS_ROTS, rng)
+    conj = ctx.conj_key_gen(sk, rng)
+    z2 = rng.normal(size=ctx.params.N // 2) * 0.5
+    ct2 = ctx.encrypt(pk, z2, rng)
+    ct_c = ctx.encrypt(pk, z + 1j * z2, rng)
+    out = {f"rotate by {r}": ctx.rotate(ct, r, rot) for r in CKKS_ROTS}
+    out["conjugate"] = ctx.conjugate(ct_c, conj)
+    out["add"] = ctx.add(ct, ct2)
+    out["mul_plain then rescale"] = ctx.rescale(ctx.mul_plain(ct, w))
+    return out, ct2, z2
+
+
+def ckks_limb_kernels(dev, shapes: collections.Counter, dev_ms: dict, errors: Errors,
+                      int_peak: float, card: str) -> None:
+    """Kernels 1-2 at every (kernel, shape, basis) a mul_rescale launched:
+    byte-equal to their plain versions on random residues; their device
+    time a launch in the mul_rescale (dev_ms, from its trace) and 10
+    launches back to back on these residues (with the host's issue), beside
+    their bound."""
+    from fhe_tpu_torch.lattice import rns
+    gen = np.random.default_rng(SEED + 6)
+    ops = {"ntt_forward_limbs": (rns.ntt_forward, rns.forward_plain),
+           "ntt_inverse_limbs": (rns.ntt_inverse, rns.inverse_plain)}
+    for (kernel, shape, moduli), n in sorted(shapes.items()):
+        rows, L, N = shape
+        plan = rns.make_rns_plan(N, moduli, dev)
+        x = torch.stack([_residues(gen, q, (rows, N), dev) for q in moduli], dim=1)
+        fn, plain = ops[kernel]
+        errors.compare(kernel, fn(plan, x), plain(plan, x), f"[ckks] {kernel} {list(shape)}",
+                       show=False)
+        ms = time_ms(lambda: [fn(plan, x) for _ in range(10)], reps=5) / 10
+        p_ms = time_ms(lambda: plain(plan, x), reps=3)
+        butterflies = N // 2 * (N.bit_length() - 1)
+        muls = 3 * (butterflies + (N if "inverse" in kernel else 0)) * rows * L
+        b_ms, b_by = bound(_nbytes(x, x, plan.fwd_w, plan.fwd_ws), muls, int_peak)
+        d_ms = dev_ms.get((kernel, shape, moduli))
+        d_txt = (f"{d_ms:.4f} ms a launch on the device (trace), at {b_ms / d_ms:.3f} of the "
+                 f"bound" if d_ms else "device time not measured (no trace)")
+        print(f"[ckks] {kernel} {list(shape)}: {d_txt}; {ms:.4f} ms a launch 10 back to back "
+              f"(with the host's issue); plain {p_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}; "
+              f"byte-equal to the plain version; {n} launches a mul_rescale  ({card})")
+
+
+def kernel_trace(fn, reps: int) -> list[dict]:
+    """The device kernels of reps calls of fn() (warmed by the caller), from
+    a torch.profiler (CUPTI) trace: name, grid and duration in us of each;
+    [] where the trace holds none."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return [{"name": e.get("name", ""), "grid": tuple(e.get("args", {}).get("grid", ())),
+             "us": float(e["dur"])} for e in events if e.get("cat") == "kernel" and "dur" in e]
+
+
+def ckks_device_split(what: str, fn, reps: int, wall_ms: float, shapes: collections.Counter,
+                      card: str) -> dict:
+    """Prints one call of fn split, from kernel_trace, into kernels 1-2, the
+    other kernels (the int64 glue) and the rest of its CUDA-event time
+    wall_ms, where the card waits on the host; returns the limb kernels'
+    median device ms a launch by (kernel, shape, basis) of `shapes`."""
+    from fhe_tpu_torch.kernels import ntt as kntt
+    ks = kernel_trace(fn, reps)
+    if not ks:
+        print(f"[ckks] {what}: {wall_ms:.3f} ms; the profiler trace holds no kernel: the device "
+              f"split is not measured  ({card})")
+        return {}
+    is_limb = lambda k: "_limbs_kernel" in k["name"]
+    limb = sum(k["us"] for k in ks if is_limb(k)) / reps / 1e3
+    glue = sum(k["us"] for k in ks if not is_limb(k)) / reps / 1e3
+    n_glue = sum(1 for k in ks if not is_limb(k)) / reps
+    rest = wall_ms - limb - glue
+    print(f"[ckks] {what}: {wall_ms:.3f} ms (CUDA events, median); device time a call from a "
+          f"torch.profiler trace of {reps} calls: kernels 1-2 {limb:.4f} ms ({limb / wall_ms:.3f})"
+          f", the other {n_glue:g} kernels (the int64 glue) {glue:.4f} ms "
+          f"({glue / wall_ms:.3f}), no kernel running {rest:.4f} ms ({rest / wall_ms:.3f})  "
+          f"({card})")
+    out = {}
+    for kernel, shape, moduli in shapes:
+        rows, L, N = shape
+        grid = (-(-rows // kntt.rows_per_block(N)), L, 1)
+        stem = kernel[len("ntt_"):] + "_kernel"
+        us = [k["us"] for k in ks if stem in k["name"] and k["grid"] == grid]
+        if us:
+            out[(kernel, shape, moduli)] = statistics.median(us) / 1e3
+    return out
+
+
+def ckks_phase(dev, errors: Errors, card: str) -> dict:
+    """The [ckks] phase: CKKS bench config 3 keyed from SEED on the card;
+    returns the launches of one counted mul_rescale."""
+    from fhe_tpu_torch import kernels
+    from fhe_tpu_torch.lattice.rns import RnsPoly
+    from fhe_tpu_torch.pke import ckks
+    t_phase = time.perf_counter()
+    tag = "[ckks]"
+    ctx = ckks.CkksContext.create(**CKKS_CONFIG, device=dev)
+    p = ctx.params
+    print(f"{tag} bench config 3: N = {p.N}, Q = {p.moduli} ({len(p.moduli)} limbs), P = "
+          f"{p.special_mods}, dnum = {p.num_part_q}, {p.num_per_part} limbs a digit, scale "
+          f"2^{p.scale_bits}")
+    t0 = time.perf_counter()
+    rng, sk, pk, evk, pevk, z, ct = ckks_keys(ctx, SEED)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    w = np.random.default_rng(SEED + 7).normal(size=p.N // 2)
+    t0 = time.perf_counter()
+    ops, ct2, z2 = ckks_ops(ctx, rng, sk, pk, ct, z, w)
+    torch.cuda.synchronize()
+    ops_s = time.perf_counter() - t0
+    print(f"{tag} keygen + relin_key_gen + prepare_evk + encrypt on {dev}: {keygen_s:.3f} s; "
+          f"rotation keys {CKKS_ROTS}, the conjugation key, a second encrypt and the ops: "
+          f"{ops_s:.3f} s (host clock, with the host draws); evk {tuple(evk.b.shape)} x 2")
+
+    # the counted run: one mul_rescale
+    ctx.mul_rescale(ct, ct, pevk)                                  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with limb_launch_shapes() as shapes:
+        out = ctx.mul_rescale(ct, ct, pevk)
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    others = {k: v for k, v in launches.items() if k not in LIMB_KERNELS and v}
+    if others or not all(launches[k] for k in LIMB_KERNELS):
+        fail(f"{tag} mul_rescale launches {launches}: the limb-stacked kernels only, each at "
+             f"least once")
+    print(f"{tag} mul_rescale launches: {launches} (kernels 3-5 and the single-modulus NTTs: 0)")
+    for (kernel, shape, moduli), n in sorted(shapes.items()):
+        print(f"{tag} mul_rescale: {kernel} {list(shape)} x {n}")
+
+    ckks_values_close("mul_rescale(ct, ct) against z^2", ctx.decrypt(sk, out).real, z * z, 1e-2)
+    ckks_same("mul + relinearize + rescale against mul_rescale",
+              ctx.rescale(ctx.relinearize(ctx.mul(ct, ct), evk)), out)
+    # fhe_tpu's tests/test_ckks.py bounds (N = 256) times N / 256: at a fixed
+    # scale a fresh ciphertext's slot error grows with N (sqrt(N) in the
+    # coefficients, sqrt(N) more in the embedding); add is exact on the
+    # phases, so its error is at most the sum of its inputs'
+    grow = p.N / 256
+    fresh = [float(np.abs(ctx.decrypt(sk, c) - v).max()) for c, v in ((ct, z), (ct2, z2))]
+    print(f"{tag} fresh ciphertexts' errors {fresh[0]:.3e}, {fresh[1]:.3e}")
+    want = {f"rotate by {r}": (np.roll(z, -r), 1e-3 * grow) for r in CKKS_ROTS}
+    want["conjugate"] = (np.conj(z + 1j * z2), 1e-3 * grow)
+    want["add"] = (z + z2, sum(fresh) + 1e-9)
+    want["mul_plain then rescale"] = (z * w, 1e-3 * grow)
+    for op, got in ops.items():
+        ckks_values_close(op, ctx.decrypt(sk, got), *want[op])
+
+    t0 = time.perf_counter()
+    cpu = ckks.CkksContext.create(**CKKS_CONFIG, device="cpu")
+    cpu_rng, cpu_sk, cpu_pk, _, cpu_pevk, cpu_z, cpu_ct = ckks_keys(cpu, SEED)
+    cpu_out = cpu.mul_rescale(cpu_ct, cpu_ct, cpu_pevk)
+    cpu_ops, *_ = ckks_ops(cpu, cpu_rng, cpu_sk, cpu_pk, cpu_ct, cpu_z, w)
+    cpu_s = time.perf_counter() - t0
+    ckks_same(f"the card's mul_rescale against the CPU port's, same seed ({cpu_s:.1f} s on the "
+              f"CPU with the ops below)", cpu_out, out)
+    for op, got in ops.items():
+        ckks_same(f"the card's {op} against the CPU port's", cpu_ops[op], got)
+
+    # batch CKKS_BATCH: one ciphertext a row
+    zs, cts = [z], [ct]
+    for _ in range(CKKS_BATCH - 1):
+        zs.append(rng.normal(size=p.N // 2) * 0.5)
+        cts.append(ctx.encrypt(pk, zs[-1], rng))
+    stack = lambda polys: RnsPoly(torch.stack([x.data for x in polys]), ct.c0.moduli,
+                                  ct.c0.fmt)
+    batch = ckks.Ciphertext(stack([c.c0 for c in cts]), stack([c.c1 for c in cts]), ct.scale)
+    kernels.reset_launch_counts()
+    with limb_launch_shapes() as batch_shapes:
+        out_b = ctx.mul_rescale(batch, batch, pevk)
+        torch.cuda.synchronize()
+    batch_launches = kernels.launch_counts()
+    row = lambda c, i: ckks.Ciphertext(RnsPoly(c.c0.data[i], c.c0.moduli, c.c0.fmt),
+                                       RnsPoly(c.c1.data[i], c.c1.moduli, c.c1.fmt), c.scale)
+    differ = []
+    for i, c in enumerate(cts):
+        single = ctx.mul_rescale(c, c, pevk)
+        if not (torch.equal(single.c0.data, out_b.c0.data[i]) and
+                torch.equal(single.c1.data, out_b.c1.data[i])):
+            differ.append(i)
+    if differ or out_b.scale != out.scale:
+        fail(f"{tag} mul_rescale at batch {CKKS_BATCH}: rows {differ} differ from the single "
+             f"mul_rescale of their ciphertext")
+    print(f"{tag} every row of mul_rescale at batch {CKKS_BATCH} byte-equal to the single "
+          f"mul_rescale of its ciphertext")
+    ckks_values_close(f"every row of mul_rescale at batch {CKKS_BATCH} against its z_i^2",
+                      np.stack([ctx.decrypt(sk, row(out_b, i)).real for i in range(CKKS_BATCH)]),
+                      np.stack(zs) ** 2, 1e-2)
+
+    # timings: CUDA events around the calls; the device split from a
+    # torch.profiler trace of them
+    int_peak = int_multiply_peak(dev)
+    one_ms = time_ms(lambda: ctx.mul_rescale(ct, ct, pevk), reps=11)
+    batch_ms = time_ms(lambda: ctx.mul_rescale(batch, batch, pevk), reps=5)
+    dev_one = ckks_device_split("mul_rescale batch 1", lambda: ctx.mul_rescale(ct, ct, pevk),
+                                11, one_ms, shapes, card)
+    dev_b = ckks_device_split(f"mul_rescale batch {CKKS_BATCH}",
+                              lambda: ctx.mul_rescale(batch, batch, pevk), 5, batch_ms,
+                              batch_shapes, card)
+    ckks_limb_kernels(dev, shapes, dev_one, errors, int_peak, card)
+    ckks_limb_kernels(dev, batch_shapes, dev_b, errors, int_peak, card)
+    print(f"{tag} mul_rescale batch {CKKS_BATCH}: {batch_ms:.3f} ms = "
+          f"{batch_ms / CKKS_BATCH:.4f} ms a ciphertext; launches {dict(batch_launches)}  "
+          f"({card})")
+    print(f"{tag} peak device memory so far: "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return {name: launches[name] for name in LIMB_KERNELS}
+
+
 def time_ms(fn, reps: int) -> float:
     """Median CUDA-event time of fn() in ms; the caller has warmed fn up."""
     times = []
@@ -1759,6 +2086,9 @@ def main() -> int:
     launches.update({name: rns_launches[name] for name in LIMB_KERNELS})
     radix_launches, radix_times = radix_phase(dev, errors, card)
     launches.update(radix_launches)
+    ckks_launches = ckks_phase(dev, errors, card)
+    for name in LIMB_KERNELS:
+        launches[name] += ckks_launches[name]
     times = timings(dev, ctx, key, cts, errors, card)
     times.update(rns_times)
     times.update(radix_times)

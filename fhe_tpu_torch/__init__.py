@@ -11,8 +11,9 @@ Residues are stored as `torch.int32` (every modulus on the path is below
 reinterpret the words as uint32.
 """
 
-from . import convert, lattice, math, parallel, tfhe
+from . import convert, lattice, math, parallel, pke, tfhe
+from .pke import CkksContext
 from .tfhe import BinFheContext, Gate, Method, make_params
 
-__all__ = ["BinFheContext", "Gate", "Method", "make_params", "convert",
-           "lattice", "math", "parallel", "tfhe"]
+__all__ = ["BinFheContext", "CkksContext", "Gate", "Method", "make_params", "convert",
+           "lattice", "math", "parallel", "pke", "tfhe"]

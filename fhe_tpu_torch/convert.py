@@ -1,7 +1,9 @@
 """Carry fhe_tpu state into the port.
 
 The functions take the arrays of fhe_tpu's objects as numpy arrays (for
-example `np.asarray(key.bsk)`), so this package never imports jax.
+example `np.asarray(key.bsk)`), so this package never imports jax: the
+TFHE keys and ciphertexts, and CKKS's (`rlwe_secret_key`,
+`rlwe_public_key`, `eval_key`, `prepared_eval_key`, `ckks_ciphertext`).
 Residues are uint32 below 2^31 in fhe_tpu and int32 here; the secret key
 is small signed integers in both.  The tensors go to the first CUDA card
 unless the caller names another device.
@@ -12,6 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .lattice.rns import EVAL, RnsPoly
+from .pke import rlwe
+from .pke.ckks import Ciphertext as CkksCiphertext
 from .tfhe.acc import DmKey, LmkcdeyKey
 from .tfhe.lwe import LweCiphertext, LwePublicKey, LweSecretKey, LweSwitchingKey
 from .tfhe.radix import RadixInt, RadixParams
@@ -92,3 +97,64 @@ def lmkcdey_key(rgsw, auto, ksk_a, ksk_b, device="cuda") -> LmkcdeyKey:
 def _ksk(ksk_a, ksk_b, device) -> LweSwitchingKey:
     return LweSwitchingKey(a=_residues(ksk_a, "ksk.a", device),
                            b=_residues(ksk_b, "ksk.b", device))
+
+
+# ---------------------------------------------------------------------------
+# CKKS (fhe_tpu/pke): ring data is [..., L, N] uint32 residues, EVAL
+# ---------------------------------------------------------------------------
+
+def rlwe_secret_key(s_signed, s_eval_full, moduli_full, device="cuda") -> rlwe.SecretKey:
+    """fhe_tpu rlwe.SecretKey (s_signed, s_eval_full, moduli_full) -> SecretKey."""
+    s = np.asarray(s_signed)
+    if s.dtype.kind != "i":
+        raise TypeError(f"secret key must be signed integers, got {s.dtype}")
+    return rlwe.SecretKey(s_signed=torch.from_numpy(s.astype(np.int32)).to(device),
+                          s_eval_full=_limbs(s_eval_full, moduli_full, "s_eval_full", device),
+                          moduli_full=tuple(int(q) for q in moduli_full))
+
+
+def rlwe_public_key(b, a, moduli, device="cuda") -> rlwe.PublicKey:
+    """fhe_tpu rlwe.PublicKey (b.data, a.data, b.moduli) -> PublicKey."""
+    return rlwe.PublicKey(b=_poly(b, moduli, "b", device), a=_poly(a, moduli, "a", device))
+
+
+def eval_key(b, a, moduli_qp, num_per_part: int, device="cuda") -> rlwe.EvalKey:
+    """fhe_tpu rlwe.EvalKey (b, a [dnum, L_qp, N], moduli_qp, num_per_part)
+    -> EvalKey."""
+    return rlwe.EvalKey(b=_limbs(b, moduli_qp, "b", device), a=_limbs(a, moduli_qp, "a", device),
+                        moduli_qp=tuple(int(q) for q in moduli_qp),
+                        num_per_part=int(num_per_part))
+
+
+def prepared_eval_key(b_mont, a_mont, moduli_qp, num_per_part: int,
+                      device="cuda") -> rlwe.PreparedEvalKey:
+    """fhe_tpu rlwe.PreparedEvalKey (b_mont, a_mont: Montgomery form,
+    x 2^32 mod q) -> the port's PreparedEvalKey, out of Montgomery form."""
+    rinv = np.array([pow(1 << 32, -1, int(q)) for q in moduli_qp], dtype=object)[:, None]
+    plain = lambda x: (np.asarray(x).astype(object) * rinv % np.array(
+        [int(q) for q in moduli_qp], dtype=object)[:, None]).astype(np.int64)
+    evk = eval_key(plain(b_mont), plain(a_mont), moduli_qp, num_per_part, device)
+    return rlwe.prepare_evk(None, evk)
+
+
+def ckks_ciphertext(c0, c1, moduli, scale: float, c2=None, c_rest=(),
+                    device="cuda") -> CkksCiphertext:
+    """fhe_tpu ckks.Ciphertext (c0.data, c1.data, c0.moduli, scale, and
+    c2.data, [c.data for c in c_rest] where present) -> Ciphertext."""
+    poly = lambda x, name: _poly(x, moduli, name, device)
+    return CkksCiphertext(c0=poly(c0, "c0"), c1=poly(c1, "c1"), scale=float(scale),
+                          c2=None if c2 is None else poly(c2, "c2"),
+                          c_rest=tuple(poly(c, "c_rest") for c in c_rest))
+
+
+def _limbs(x, moduli, name: str, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.ndim < 2 or x.shape[-2] != len(moduli):
+        raise ValueError(f"{name} must be [..., {len(moduli)}, N] residues, got {x.shape}")
+    if (x.astype(np.int64) >= np.array(moduli, dtype=np.int64)[:, None]).any():
+        raise ValueError(f"{name} holds a residue not below its limb's modulus")
+    return _residues(x, name, device)
+
+
+def _poly(x, moduli, name: str, device) -> RnsPoly:
+    return RnsPoly(_limbs(x, moduli, name, device), tuple(int(q) for q in moduli), EVAL)

@@ -37,6 +37,13 @@
 // - A round's twiddles are read once per item, through L1, a stage's run
 //   of consecutive entries in as few vector loads as it takes.
 //
+// - N = 2^14 (CKKS bench config 3): a block holds 1024 threads, so each
+//   takes two of the row's N/8 edge-round threads, one after the other;
+//   the middle rounds are two 16-value rounds, one item a thread.  The
+//   64 KiB exchange buffer is dynamic shared memory (static shared memory
+//   stops at 48 KiB), and ntt_word has its own swizzle for the bits of
+//   2^14.  The smaller N compile to the kernels they were.
+//
 // The limb-stacked kernels (forward_limbs_kernel, inverse_limbs_kernel) run
 // the same rows on an RNS ring element [rows, L, N] (fhe_tpu/lattice/rns.py
 // ntt_forward / ntt_inverse, XLA there; fhe_tpu_torch/lattice/rns.py): one
@@ -46,6 +53,7 @@
 // transpose to limb-major, whose copy would double the traffic.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -57,7 +65,30 @@ namespace fhe {
 namespace ntt {
 
 template <int LogN>
-constexpr int kThreads = kRows<LogN> * kG<LogN>;
+constexpr int kThreads = kRows<LogN> * kRowThreads<LogN>;
+
+// Edge-round threads each thread runs (2 at N = 2^14, else 1).
+template <int LogN>
+constexpr int kEach = kG<LogN> / kRowThreads<LogN>;
+
+// The exchange buffer's bytes, and whether they pass the 48 KiB of static
+// shared memory a block may have (then the launcher allows them as
+// dynamic shared memory).
+template <int LogN>
+constexpr int kBufBytes = (kRows<LogN> << LogN) * 4;
+template <int LogN>
+constexpr bool kDynamicBuf = kBufBytes<LogN> > 48 * 1024;
+
+template <int LogN>
+__device__ __forceinline__ uint32_t* exchange_buffer() {
+  if constexpr (kDynamicBuf<LogN>) {
+    extern __shared__ uint4 ntt_dynamic_buf[];
+    return reinterpret_cast<uint32_t*>(ntt_dynamic_buf);
+  } else {
+    __shared__ uint32_t buf[kRows<LogN> << LogN];
+    return buf;
+  }
+}
 
 // Four blocks of 256 threads a SM (two of 512 at N = 4096, one of 1024 at
 // N = 8192): registers capped at 64 a thread.  (Three blocks at about 70
@@ -82,12 +113,14 @@ struct Scale {
 template <int LogN, bool kLazy, bool kOutBr>
 __device__ __forceinline__ void forward_rows(const uint32_t* x, uint32_t* y, bool valid,
                                              uint32_t* buf, const Tables& t, uint32_t q) {
-  constexpr int G = kG<LogN>, P = kRows<LogN>;
+  constexpr int G = kG<LogN>, P = kRows<LogN>, T = kRowThreads<LogN>;
   using R = NttRounds<LogN, kLazy, kThreads<LogN>>;
-  const int r = threadIdx.x / G, g = threadIdx.x % G;
+  const int r = threadIdx.x / T, g0 = threadIdx.x % T;
 
   // first round (bits L-1..L-3) on positions g + j N/8, from global memory
-  {
+#pragma unroll
+  for (int e = 0; e < kEach<LogN>; ++e) {
+    const int g = g0 + e * T;
     const uint32_t* src = x + g;
     uint32_t v[8];
 #pragma unroll
@@ -101,21 +134,25 @@ __device__ __forceinline__ void forward_rows(const uint32_t* x, uint32_t* y, boo
   if (!valid) return;
 
   // last round (bits 2-0) on positions 8h..8h+7, to global memory
-  const int h = kOutBr ? g : brev_bits<LogN - 3>(g);
-  uint32_t v[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = buf[R::at(r, 8 * h, k, 0)];
-  ntt_round<true, LogN, 0, 3, kLazy, true>(v, h, t, q);
-  if constexpr (kLazy) {
+  for (int e = 0; e < kEach<LogN>; ++e) {
+    const int g = g0 + e * T;
+    const int h = kOutBr ? g : brev_bits<LogN - 3>(g);
+    uint32_t v[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = reduce(reduce(v[k], 2 * q), q);
-  }
-  if constexpr (kOutBr) {
-    *reinterpret_cast<uint4*>(y + 8 * g) = make_uint4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<uint4*>(y + 8 * g + 4) = make_uint4(v[4], v[5], v[6], v[7]);
-  } else {
+    for (int k = 0; k < 8; ++k) v[k] = buf[R::at(r, 8 * h, k, 0)];
+    ntt_round<true, LogN, 0, 3, kLazy, true>(v, h, t, q);
+    if constexpr (kLazy) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) y[brev_bits<3>(k) * G + g] = v[k];
+      for (int k = 0; k < 8; ++k) v[k] = reduce(reduce(v[k], 2 * q), q);
+    }
+    if constexpr (kOutBr) {
+      *reinterpret_cast<uint4*>(y + 8 * g) = make_uint4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<uint4*>(y + 8 * g + 4) = make_uint4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) y[brev_bits<3>(k) * G + g] = v[k];
+    }
   }
 }
 
@@ -124,13 +161,15 @@ template <int LogN, bool kLazy>
 __device__ __forceinline__ void inverse_rows(const uint32_t* x, uint32_t* y, bool valid,
                                              uint32_t* buf, const Tables& t, uint32_t q,
                                              const Scale& scale) {
-  constexpr int G = kG<LogN>, P = kRows<LogN>;
+  constexpr int G = kG<LogN>, P = kRows<LogN>, T = kRowThreads<LogN>;
   using R = NttRounds<LogN, kLazy, kThreads<LogN>>;
-  const int r = threadIdx.x / G, g = threadIdx.x % G;
+  const int r = threadIdx.x / T, g0 = threadIdx.x % T;
 
   // first round (bits 0-2) on positions 8h..8h+7, h = brev(g): position
   // 8h + k holds slot brev3(k) N/8 + g of the natural-order input
-  {
+#pragma unroll
+  for (int e = 0; e < kEach<LogN>; ++e) {
+    const int g = g0 + e * T;
     const int h = brev_bits<LogN - 3>(g);
     const uint32_t* src = x + g;
     uint32_t v[8];
@@ -147,21 +186,25 @@ __device__ __forceinline__ void inverse_rows(const uint32_t* x, uint32_t* y, boo
   // last round on positions g + j N/8, to global memory: the stages on bits
   // L-3 and L-2 (lo and hi: bit L-1 clear and set), then the stage on bit
   // L-1 with N^-1 folded in, (x + y) N^-1 and (x - y) w_1 N^-1
-  uint32_t lo[4], hi[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    lo[j] = buf[R::at(r, g, j * G, 0)];
-    hi[j] = buf[R::at(r, g, (j + 4) * G, 0)];
-  }
-  ntt_round<false, LogN, LogN - 3, 2, kLazy, true>(lo, 0, t, q);
-  ntt_round<false, LogN, LogN - 3, 2, kLazy, true>(hi, 1, t, q);
-  const uint32_t lift = kLazy ? 2 * q : q;     // x - y + lift > 0
-  uint32_t* dst = y + g;
+  for (int e = 0; e < kEach<LogN>; ++e) {
+    const int g = g0 + e * T;
+    uint32_t lo[4], hi[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    dst[j * G] = reduce(shoup_lazy(lo[j] + hi[j], scale.ninv, scale.ninv_s, q), q);
-    dst[(j + 4) * G] =
-        reduce(shoup_lazy(lo[j] - hi[j] + lift, scale.w1_ninv, scale.w1_ninv_s, q), q);
+    for (int j = 0; j < 4; ++j) {
+      lo[j] = buf[R::at(r, g, j * G, 0)];
+      hi[j] = buf[R::at(r, g, (j + 4) * G, 0)];
+    }
+    ntt_round<false, LogN, LogN - 3, 2, kLazy, true>(lo, 0, t, q);
+    ntt_round<false, LogN, LogN - 3, 2, kLazy, true>(hi, 1, t, q);
+    const uint32_t lift = kLazy ? 2 * q : q;     // x - y + lift > 0
+    uint32_t* dst = y + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dst[j * G] = reduce(shoup_lazy(lo[j] + hi[j], scale.ninv, scale.ninv_s, q), q);
+      dst[(j + 4) * G] =
+          reduce(shoup_lazy(lo[j] - hi[j] + lift, scale.w1_ninv, scale.w1_ninv_s, q), q);
+    }
   }
 }
 
@@ -169,8 +212,9 @@ template <int LogN, bool kLazy, bool kOutBr>
 __global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
 forward_kernel(const Args args) {
   constexpr int N = 1 << LogN;
-  __shared__ uint32_t buf[kRows<LogN> * N];
-  const size_t row = static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kG<LogN>;
+  uint32_t* const buf = exchange_buffer<LogN>();
+  const size_t row =
+      static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kRowThreads<LogN>;
   const Tables t{args.w, args.ws, args.w, args.ws, nullptr};
   forward_rows<LogN, kLazy, kOutBr>(args.x + row * N, args.y + row * N,
                                     row < static_cast<size_t>(args.rows), buf, t, args.q);
@@ -180,23 +224,13 @@ template <int LogN, bool kLazy>
 __global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
 inverse_kernel(const Args args) {
   constexpr int N = 1 << LogN;
-  __shared__ uint32_t buf[kRows<LogN> * N];
-  const size_t row = static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kG<LogN>;
+  uint32_t* const buf = exchange_buffer<LogN>();
+  const size_t row =
+      static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kRowThreads<LogN>;
   const Tables t{args.w, args.ws, args.w, args.ws, nullptr};
   inverse_rows<LogN, kLazy>(args.x + row * N, args.y + row * N,
                             row < static_cast<size_t>(args.rows), buf, t, args.q,
                             Scale{args.ninv, args.ninv_s, args.w1_ninv, args.w1_ninv_s});
-}
-
-// Entry l of a per-limb scalar of the arguments, by constant indices (a
-// kernel parameter indexed by a variable would be copied to local memory).
-__device__ __forceinline__ uint32_t of_limb(const uint32_t (&v)[kMaxLimbs], int l) {
-  uint32_t out = v[0];
-#pragma unroll
-  for (int i = 1; i < kMaxLimbs; ++i) {
-    if (l == i) out = v[i];
-  }
-  return out;
 }
 
 // The limb-stacked kernels: block (b, l) transforms rows bP..bP+P-1 of limb
@@ -205,59 +239,85 @@ __device__ __forceinline__ uint32_t of_limb(const uint32_t (&v)[kMaxLimbs], int 
 // kernels above.
 template <int LogN, bool kLazy>
 __global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
-forward_limbs_kernel(const LimbArgs args) {
+forward_limbs_kernel(const __grid_constant__ LimbArgs args) {
   constexpr int N = 1 << LogN;
-  __shared__ uint32_t buf[kRows<LogN> * N];
+  uint32_t* const buf = exchange_buffer<LogN>();
   const int l = blockIdx.y;
-  const size_t row = static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kG<LogN>;
+  const size_t row =
+      static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kRowThreads<LogN>;
   const size_t at = (row * args.limbs + l) * N;
   const Tables t{args.w + l * N, args.ws + l * N, args.w + l * N, args.ws + l * N, nullptr};
   forward_rows<LogN, kLazy, false>(args.x + at, args.y + at,
-                                   row < static_cast<size_t>(args.rows), buf, t,
-                                   of_limb(args.q, l));
+                                   row < static_cast<size_t>(args.rows), buf, t, args.q[l]);
 }
 
 template <int LogN, bool kLazy>
 __global__ void __launch_bounds__(kThreads<LogN>, kMinBlocks<LogN>)
-inverse_limbs_kernel(const LimbArgs args) {
+inverse_limbs_kernel(const __grid_constant__ LimbArgs args) {
   constexpr int N = 1 << LogN;
-  __shared__ uint32_t buf[kRows<LogN> * N];
+  uint32_t* const buf = exchange_buffer<LogN>();
   const int l = blockIdx.y;
-  const size_t row = static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kG<LogN>;
+  const size_t row =
+      static_cast<size_t>(blockIdx.x) * kRows<LogN> + threadIdx.x / kRowThreads<LogN>;
   const size_t at = (row * args.limbs + l) * N;
   const Tables t{args.w + l * N, args.ws + l * N, args.w + l * N, args.ws + l * N, nullptr};
   inverse_rows<LogN, kLazy>(args.x + at, args.y + at, row < static_cast<size_t>(args.rows), buf,
-                            t, of_limb(args.q, l),
-                            Scale{of_limb(args.ninv, l), of_limb(args.ninv_s, l),
-                                  of_limb(args.w1_ninv, l), of_limb(args.w1_ninv_s, l)});
+                            t, args.q[l],
+                            Scale{args.ninv[l], args.ninv_s[l], args.w1_ninv[l],
+                                  args.w1_ninv_s[l]});
+}
+
+// The launch of a kernel of N = 2^LogN on `blocks` blocks: where the
+// exchange buffer is dynamic shared memory, the kernel's cap is raised to
+// it at its first launch on each device (the attribute belongs to the
+// device's copy of the kernel), not at every launch.
+template <int LogN, auto Kernel, typename A>
+int launch(dim3 blocks, const A& args, cudaStream_t stream) {
+  if (blocks.x == 0) return static_cast<int>(cudaGetLastError());
+  if constexpr (kDynamicBuf<LogN>) {
+    static std::atomic<uint64_t> raised{0};  // one bit a device, devices 0-63
+    int dev = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+    if (bit == 0 || !(raised.load(std::memory_order_acquire) & bit)) {
+      rc = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kBufBytes<LogN>);
+      if (rc != cudaSuccess) return static_cast<int>(rc);
+      raised.fetch_or(bit, std::memory_order_release);
+    }
+  }
+  Kernel<<<blocks, kThreads<LogN>, kDynamicBuf<LogN> ? kBufBytes<LogN> : 0, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LogN>
+unsigned row_blocks(int rows) {
+  return static_cast<unsigned>((rows + kRows<LogN> - 1) / kRows<LogN>);
 }
 
 template <int LogN, bool kLazy, bool kOutBr>
 int launch_forward(const Args& args, cudaStream_t stream) {
-  const int blocks = (args.rows + kRows<LogN> - 1) / kRows<LogN>;
-  if (blocks > 0) forward_kernel<LogN, kLazy, kOutBr><<<blocks, kThreads<LogN>, 0, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
+  return launch<LogN, forward_kernel<LogN, kLazy, kOutBr>>(dim3(row_blocks<LogN>(args.rows)),
+                                                           args, stream);
 }
 
 template <int LogN, bool kLazy>
 int launch_inverse(const Args& args, cudaStream_t stream) {
-  const int blocks = (args.rows + kRows<LogN> - 1) / kRows<LogN>;
-  if (blocks > 0) inverse_kernel<LogN, kLazy><<<blocks, kThreads<LogN>, 0, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
+  return launch<LogN, inverse_kernel<LogN, kLazy>>(dim3(row_blocks<LogN>(args.rows)), args,
+                                                   stream);
 }
 
 template <int LogN, bool kLazy>
 int launch_forward_limbs(const LimbArgs& args, cudaStream_t stream) {
-  const dim3 grid((args.rows + kRows<LogN> - 1) / kRows<LogN>, args.limbs);
-  if (grid.x > 0) forward_limbs_kernel<LogN, kLazy><<<grid, kThreads<LogN>, 0, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
+  return launch<LogN, forward_limbs_kernel<LogN, kLazy>>(
+      dim3(row_blocks<LogN>(args.rows), args.limbs), args, stream);
 }
 
 template <int LogN, bool kLazy>
 int launch_inverse_limbs(const LimbArgs& args, cudaStream_t stream) {
-  const dim3 grid((args.rows + kRows<LogN> - 1) / kRows<LogN>, args.limbs);
-  if (grid.x > 0) inverse_limbs_kernel<LogN, kLazy><<<grid, kThreads<LogN>, 0, stream>>>(args);
-  return static_cast<int>(cudaGetLastError());
+  return launch<LogN, inverse_limbs_kernel<LogN, kLazy>>(
+      dim3(row_blocks<LogN>(args.rows), args.limbs), args, stream);
 }
 
 }  // namespace ntt

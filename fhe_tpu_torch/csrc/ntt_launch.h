@@ -31,12 +31,16 @@ struct Args {
   uint32_t q, ninv, ninv_s, w1_ninv, w1_ninv_s;
 };
 
-// Threads per row (N/8) and rows per block: about 256 threads a block
-// where N <= 2048, one row a block above.
+// A row's edge-round threads (N/8, each on 8 values) and rows per block:
+// about 256 threads a block where N <= 2048, one row a block above.  A
+// block has at most 1024 threads, so at N = 2^14 each of a row's 1024
+// threads takes two of its N/8 edge-round threads (kRowThreads).
 template <int LogN>
 constexpr int kG = 1 << (LogN - 3);
 template <int LogN>
 constexpr int kRows = kG<LogN> >= 256 ? 1 : 256 / kG<LogN>;
+template <int LogN>
+constexpr int kRowThreads = kG<LogN> > 1024 ? 1024 : kG<LogN>;
 
 // Forward NTT, natural COEFF -> natural EVAL (or, with kOutBr, the stages'
 // bit-reversed EVAL order); kLazy needs q < 2^30.
@@ -51,7 +55,9 @@ int launch_inverse(const Args& args, cudaStream_t stream);
 // limb l is a residue mod q[l], transformed with that limb's table (w and
 // ws are the limbs' tables stacked [limbs, N], 16-byte aligned) and, for
 // the inverse, its scale (as Args's).  A block takes P rows of one limb.
-constexpr int kMaxLimbs = 4;  // kernels/ntt.py reads this line
+// The kernels take the struct as a __grid_constant__ parameter and read
+// limb l's scalars by index (one constant-bank load each).
+constexpr int kMaxLimbs = 16;  // kernels/ntt.py reads this line
 
 struct LimbArgs {
   const uint32_t* x;

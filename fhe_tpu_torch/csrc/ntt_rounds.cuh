@@ -167,10 +167,27 @@ __device__ __forceinline__ constexpr int ntt_swizzled(int x) {
   return x ^ ((x >> 5) & 7) ^ ((x >> 4) & 24) ^ (((x >> 5) ^ (x >> 6)) & 8) ^ ((x >> 10) & 7);
 }
 
+// At N = 2^14 the lanes vary position bits 0-4, bits 0-2 and 7-8, bits
+// 3-7 and the top five bits 9-13: bits 5-7 onto bank bits 0-2, bits 7-8
+// onto 3-4 and bits 9-13 onto 0-4 map each of those sets onto 32 distinct
+// banks.  (ntt_swizzled sends no bit onto bank bit 4 from bit 13.)
+__device__ __forceinline__ constexpr int ntt_swizzled14(int x) {
+  return x ^ ((x >> 5) & 7) ^ ((x >> 4) & 24) ^ ((x >> 9) & 31);
+}
+
+template <int LogN>
+__device__ __forceinline__ constexpr int ntt_swizzle(int x) {
+  if constexpr (LogN == 14) {
+    return ntt_swizzled14(x);
+  } else {
+    return ntt_swizzled(x);
+  }
+}
+
 template <int LogN>
 __device__ __forceinline__ int ntt_word(int row, int x) {
-  static_assert(LogN >= 9 && LogN <= 13, "ntt_word: 9 <= LogN <= 13");
-  return (row << LogN) + ntt_swizzled(x);
+  static_assert(LogN >= 9 && LogN <= 14, "ntt_word: 9 <= LogN <= 14");
+  return (row << LogN) + ntt_swizzle<LogN>(x);
 }
 
 // How a caller's middle rounds run: the arithmetic (kLazy), the twiddle
@@ -195,7 +212,7 @@ struct NttRounds {
   static constexpr bool kLazy = kLazyArith, kVec = true;
   static constexpr int kThreads = kBlockThreads;
   static __device__ __forceinline__ int at(int row, int base, int off, int) {
-    return ntt_word<LogN>(row, base) ^ ntt_swizzled(off);
+    return ntt_word<LogN>(row, base) ^ ntt_swizzle<LogN>(off);
   }
 };
 

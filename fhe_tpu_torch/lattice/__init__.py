@@ -1,5 +1,6 @@
-"""Lattice layer: the RNS ring's NTT (`rns`)."""
+"""Lattice layer: the RNS ring (`rns`) and the HE-standard security
+tables (`stdparams`)."""
 
-from . import rns
+from . import rns, stdparams
 
-__all__ = ["rns"]
+__all__ = ["rns", "stdparams"]

@@ -1,16 +1,25 @@
-"""The NTT of an RNS (double-CRT) ring element: the part of
-fhe_tpu/lattice/rns.py that the 2-limb accumulator (`tfhe.rgsw_rns`) uses.
+"""The RNS (double-CRT) ring: port of fhe_tpu/lattice/rns.py.
 
 A ring element mod Q = q_0 ... q_{L-1} is one int32 tensor [..., L, N]
 (limb-major, fhe_tpu's layout), limb l a residue mod its own NTT prime
-q_l < 2^31.  `RnsPlan` stacks the limbs' `math.ntt.NttPlan` tables as
-[L, N].  `ntt_forward` / `ntt_inverse` transform every limb of every row:
-the plain per-limb loop (`forward_plain` / `inverse_plain`) for a CPU
-tensor, the limb-stacked NTT kernels (`kernels.ntt.forward_limbs` /
+q_l < 2^31; `RnsPoly` carries it with its moduli and format (COEFF or
+EVAL).  `RnsPlan` stacks the limbs' `math.ntt.NttPlan` tables as [L, N].
+`ntt_forward` / `ntt_inverse` transform every limb of every row: the
+plain per-limb loop (`forward_plain` / `inverse_plain`) for a CPU tensor,
+the limb-stacked NTT kernels (`kernels.ntt.forward_limbs` /
 `inverse_limbs`, one launch for all limbs) for a CUDA tensor; they raise
 on any other device and never fall back.  EVALUATION is natural order, as
-in `math.ntt`.  The rest of fhe_tpu's RnsPoly (basis switching,
-automorphisms) waits for ROADMAP.md queue 1, item 10.
+in `math.ntt`.
+
+Everything else here is PyTorch ops on the device of the data, as fhe_tpu
+leaves it to XLA: residues are widened to int64, where any product of two
+residues is exact, and every product is reduced mod its limb before a sum
+(a basis switch sums L of them).  fhe_tpu multiplies in Montgomery form
+against Montgomery-form constants; the port multiplies plain residues by
+plain constants, which gives the same canonical residues, so every result
+is byte-equal.  fhe_tpu's BEHZ / HPS kit for BFV
+(`scale_and_round_t_over_q`, `fast_base_conv_*`, `fast_rns_floor_q`)
+waits for the BFV slice (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -18,9 +27,14 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from ..math import ntt as nttmod
+from ..math.modmath import add_mod, barrett_reduce_u32, fraction_round_v, neg_mod, sub_mod
+
+COEFF = "COEFF"
+EVAL = "EVAL"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -91,3 +105,261 @@ def ntt_inverse(plan: RnsPlan, x: torch.Tensor) -> torch.Tensor:
     limb-stacked kernel on CUDA."""
     from ..kernels import ntt as kntt
     return _dispatch(plan, x, inverse_plain, kntt.inverse_limbs)
+
+
+# ---------------------------------------------------------------------------
+# ring elements
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RnsPoly:
+    """[..., L, N] int32 ring element over basis `moduli`, in `fmt`."""
+    data: torch.Tensor
+    moduli: tuple
+    fmt: str = EVAL
+
+    @property
+    def N(self) -> int:
+        return self.data.shape[-1]
+
+    @property
+    def L(self) -> int:
+        return self.data.shape[-2]
+
+    @property
+    def plan(self) -> RnsPlan:
+        return make_rns_plan(self.N, self.moduli, self.data.device)
+
+    def _q(self) -> torch.Tensor:
+        """Per-limb moduli, int64 [L, 1]."""
+        return self.plan.q
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def _i64(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def limb_constants(values: tuple, device) -> torch.Tensor:
+    """Per-limb constants as an int64 [L, 1] tensor on the device (cached)."""
+    return torch.tensor(values, dtype=torch.int64, device=device)[:, None]
+
+
+def modulus_product(moduli) -> int:
+    """The product of the moduli, a Python int."""
+    out = 1
+    for q in moduli:
+        out *= int(q)
+    return out
+
+
+def to_eval(p: RnsPoly) -> RnsPoly:
+    if p.fmt == EVAL:
+        return p
+    return RnsPoly(ntt_forward(p.plan, p.data), p.moduli, EVAL)
+
+
+def to_coeff(p: RnsPoly) -> RnsPoly:
+    if p.fmt == COEFF:
+        return p
+    return RnsPoly(ntt_inverse(p.plan, p.data), p.moduli, COEFF)
+
+
+def _same_ring(a: RnsPoly, b: RnsPoly) -> None:
+    if a.moduli != b.moduli or a.fmt != b.fmt:
+        raise ValueError(f"ring mismatch: {a.moduli} {a.fmt} vs {b.moduli} {b.fmt}")
+
+
+def add(a: RnsPoly, b: RnsPoly) -> RnsPoly:
+    _same_ring(a, b)
+    return RnsPoly(_i32(add_mod(a.data, b.data, a._q())), a.moduli, a.fmt)
+
+
+def sub(a: RnsPoly, b: RnsPoly) -> RnsPoly:
+    _same_ring(a, b)
+    return RnsPoly(_i32(sub_mod(a.data, b.data, a._q())), a.moduli, a.fmt)
+
+
+def neg(a: RnsPoly) -> RnsPoly:
+    return RnsPoly(_i32(neg_mod(a.data, a._q())), a.moduli, a.fmt)
+
+
+def mul(a: RnsPoly, b: RnsPoly) -> RnsPoly:
+    """Pointwise product (EVALUATION format required)."""
+    _same_ring(a, b)
+    if a.fmt != EVAL:
+        raise ValueError("rns.mul needs EVALUATION format")
+    return RnsPoly(_i32(_i64(a.data) * _i64(b.data) % a._q()), a.moduli, EVAL)
+
+
+def mul_scalar(a: RnsPoly, c) -> RnsPoly:
+    """Multiply by an integer: c is an int, or one residue per limb (a
+    sequence of ints, or an int64 [L, 1] tensor on a's device)."""
+    if not isinstance(c, torch.Tensor):
+        cs = [int(c) % q for q in a.moduli] if isinstance(c, int) else [int(v) for v in c]
+        c = limb_constants(tuple(cs), a.data.device)
+    return RnsPoly(_i32(_i64(a.data) * c % a._q()), a.moduli, a.fmt)
+
+
+@functools.lru_cache(maxsize=None)
+def _automorphism_index(N: int, k: int, device) -> torch.Tensor:
+    """out[i] = in[j] with 2j + 1 = (2i + 1) k mod 2N (natural EVAL order)."""
+    i = np.arange(N, dtype=np.int64)
+    j = ((2 * i + 1) * k % (2 * N) - 1) // 2
+    return torch.from_numpy(j).to(device)
+
+
+def automorphism(p: RnsPoly, k: int) -> RnsPoly:
+    """a(X) -> a(X^k) for odd k (EvalAutomorphism): in natural-order
+    EVALUATION a permutation of the points, a host index table and one
+    index_select on the device."""
+    if p.fmt != EVAL:
+        raise ValueError("automorphism needs EVALUATION format")
+    k %= 2 * p.N
+    if k % 2 != 1:
+        raise ValueError(f"automorphism index must be odd, got {k}")
+    idx = _automorphism_index(p.N, k, p.data.device)
+    return RnsPoly(p.data.index_select(-1, idx), p.moduli, EVAL)
+
+
+# ---------------------------------------------------------------------------
+# CRT basis arithmetic (host constants, plain form)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _basis_consts(from_mods: tuple, to_mods: tuple, device):
+    """ApproxSwitchCRTBasis {q_i} -> {p_j}: (Q/q_i)^-1 mod q_i as [L, 1] and
+    (Q/q_i) mod p_j as [L, M, 1], int64, plain form (fhe_tpu keeps them in
+    Montgomery form); and the to-basis moduli [M, 1]."""
+    Q = modulus_product(from_mods)
+    qhat_inv = [pow(Q // qi % qi, -1, qi) for qi in from_mods]
+    qhat_to = [[Q // qi % pj for pj in to_mods] for qi in from_mods]
+    return (limb_constants(tuple(qhat_inv), device),
+            torch.tensor(qhat_to, dtype=torch.int64, device=device)[..., None],
+            limb_constants(tuple(to_mods), device))
+
+
+def _switch_sum(p: RnsPoly, to_mods: tuple):
+    """(y, out): y_i = x_i (Q/q_i)^-1 mod q_i [..., L, N] and out_j =
+    sum_i y_i (Q/q_i) mod p_j [..., M, N], each term reduced before the sum."""
+    qhat_inv, qhat_to, pq = _basis_consts(p.moduli, tuple(to_mods), p.data.device)
+    y = _i64(p.data) * qhat_inv % p._q()
+    terms = y[..., :, None, :] * qhat_to % pq                   # [..., L, M, N]
+    return y, terms.sum(dim=-3) % pq
+
+
+def switch_crt_basis_approx(p: RnsPoly, to_mods: tuple) -> RnsPoly:
+    """ApproxSwitchCRTBasis (dcrtpoly-impl.h:910): out_j = sum_i [x_i *
+    (Q/q_i)^-1 mod q_i] * (Q/q_i) mod p_j, COEFFICIENT format; the result
+    is x + u Q for a small integer u in [0, L), exactly as the reference."""
+    if p.fmt != COEFF:
+        raise ValueError("basis switch needs COEFFICIENT format")
+    _, out = _switch_sum(p, to_mods)
+    return RnsPoly(_i32(out), tuple(to_mods), COEFF)
+
+
+def switch_crt_basis_exact(p: RnsPoly, to_mods: tuple, centered: bool = False) -> RnsPoly:
+    """Exact CRT basis switch (HPS fast base conversion with correction):
+    out_j = sum_i y_i (Q/q_i) - v Q mod p_j, v = floor(sum y_i / q_i) (its
+    round if centered, lifting the [-Q/2, Q/2) representative), with v
+    from `modmath.fraction_round_v`'s integer arithmetic."""
+    if p.fmt != COEFF:
+        raise ValueError("basis switch needs COEFFICIENT format")
+    y, acc = _switch_sum(p, to_mods)
+    v = fraction_round_v(y, p.moduli, centered)                 # [..., N], <= L
+    Q = modulus_product(p.moduli)
+    q_to = limb_constants(tuple(Q % pj for pj in to_mods), p.data.device)
+    pq = limb_constants(tuple(to_mods), p.data.device)
+    return RnsPoly(_i32(sub_mod(acc, v[..., None, :] * q_to % pq, pq)), tuple(to_mods), COEFF)
+
+
+def expand_crt_basis_approx(p: RnsPoly, ext_mods: tuple) -> RnsPoly:
+    """ApproxModUp Q -> QP (dcrtpoly-impl.h:988): keep the Q limbs, append
+    the switched P limbs."""
+    ext = switch_crt_basis_approx(p, ext_mods)
+    return RnsPoly(torch.cat([p.data, ext.data], dim=-2), p.moduli + tuple(ext_mods), p.fmt)
+
+
+def approx_mod_down(p: RnsPoly, q_mods: tuple, p_mods: tuple) -> RnsPoly:
+    """ApproxModDown QP -> Q: (x - w) P^-1 mod Q with w = x mod P switched
+    to Q (up to its + u P slack).  p: COEFF over q_mods + p_mods.  BGV's
+    t-multiple rounding (fhe_tpu's `t=`) waits for the BGV slice."""
+    if p.fmt != COEFF or p.moduli != tuple(q_mods) + tuple(p_mods):
+        raise ValueError("approx_mod_down needs COEFFICIENT data over q_mods + p_mods")
+    Lq = len(q_mods)
+    x_q = RnsPoly(p.data[..., :Lq, :], tuple(q_mods), COEFF)
+    sw = switch_crt_basis_approx(RnsPoly(p.data[..., Lq:, :], tuple(p_mods), COEFF),
+                                 tuple(q_mods))
+    P = modulus_product(p_mods)
+    return mul_scalar(sub(x_q, sw), [pow(P % q, -1, q) for q in q_mods])
+
+
+@functools.lru_cache(maxsize=None)
+def _monomial_eval_table(N: int, moduli: tuple, m: int, device) -> torch.Tensor:
+    """EVALUATION values of X^m over the basis, [L, N] int64:
+    psi_l^(m (2k + 1)) mod q_l (MultByMonomialInPlace)."""
+    e = m * (2 * np.arange(N, dtype=np.int64) + 1) % (2 * N)
+    rows = []
+    for q in moduli:
+        psi = nttmod.make_plan(N, q).psi
+        pows = np.empty(2 * N, dtype=np.int64)
+        acc = 1
+        for t in range(2 * N):
+            pows[t] = acc
+            acc = acc * psi % q
+        rows.append(pows[e])
+    return torch.from_numpy(np.stack(rows)).to(device)
+
+
+def mul_monomial(p: RnsPoly, m: int) -> RnsPoly:
+    """p(X) X^m in EVALUATION format (negacyclic: X^N = -1)."""
+    if p.fmt != EVAL:
+        raise ValueError("mul_monomial needs EVALUATION format")
+    tbl = _monomial_eval_table(p.N, p.moduli, m % (2 * p.N), p.data.device)
+    return RnsPoly(_i32(_i64(p.data) * tbl % p._q()), p.moduli, EVAL)
+
+
+def level_reduce(p: RnsPoly, drop: int) -> RnsPoly:
+    """Drop the last `drop` limbs without scaling (LevelReduce)."""
+    if drop == 0:
+        return p
+    if not 0 < drop < len(p.moduli):
+        raise ValueError(f"cannot drop {drop} of {len(p.moduli)} limbs")
+    return RnsPoly(p.data[..., :-drop, :], p.moduli[:-drop], p.fmt)
+
+
+def drop_last_element_and_scale(p: RnsPoly) -> RnsPoly:
+    """CKKS rescale (DropLastElementAndScale): with last modulus q_L,
+    out_i = (x_i - x_L) q_L^-1 mod q_i, COEFF data."""
+    if p.fmt != COEFF:
+        raise ValueError("drop_last_element_and_scale needs COEFFICIENT format")
+    keep = p.moduli[:-1]
+    qL = p.moduli[-1]
+    qk = limb_constants(tuple(keep), p.data.device)
+    diff = sub_mod(p.data[..., :-1, :], barrett_reduce_u32(p.data[..., -1:, :], qk), qk)
+    return mul_scalar(RnsPoly(_i32(diff), keep, COEFF), [pow(qL % q, -1, q) for q in keep])
+
+
+def to_bigint(p: RnsPoly) -> np.ndarray:
+    """Host: CRT-reconstruct the exact Python-int coefficients in [0, Q)."""
+    data = p.data.cpu().numpy()
+    Q = modulus_product(p.moduli)
+    out = np.zeros(data.shape[:-2] + (data.shape[-1],), dtype=object)
+    for i, q in enumerate(p.moduli):
+        qhat = Q // q
+        c = pow(qhat % q, -1, q) * qhat % Q
+        out = (out + data[..., i, :].astype(object) * c) % Q
+    return out
+
+
+def from_bigint(vals, moduli: tuple, N: int, fmt: str = COEFF, device="cuda") -> RnsPoly:
+    """Host: exact integers [..., N] -> RNS residues on the device."""
+    arr = np.asarray(vals, dtype=object)
+    if arr.shape[-1] != N:
+        raise ValueError(f"from_bigint needs [..., {N}] integers, got {arr.shape}")
+    limbs = np.stack([(arr % q).astype(np.int64) for q in moduli], axis=-2)
+    return RnsPoly(torch.from_numpy(limbs.astype(np.int32)).to(device), tuple(moduli), fmt)

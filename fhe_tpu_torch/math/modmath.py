@@ -92,3 +92,40 @@ def round_scale_mod(v, num: int, den: int, out_mod: int) -> torch.Tensor:
     floor(0.5 + x/den) == floor((2x + den) / (2 den)) for odd den too."""
     k = (2 * _i64(v) * num + den) // (2 * den)
     return torch.where(k >= out_mod, k - out_mod, k)
+
+
+def barrett_reduce_u32(x, q) -> torch.Tensor:
+    """x mod q for any uint32 word x (int32 bit patterns read as unsigned):
+    the value fhe_tpu's Barrett reduction (mu = floor(2^32 / q)) returns.
+    q an int or a tensor of moduli broadcast against x."""
+    return (_i64(x) & 0xFFFFFFFF) % q
+
+
+_MASK31 = (1 << 31) - 1
+
+
+def fraction_round_v(y, mods: tuple, centered: bool = False) -> torch.Tensor:
+    """v = floor(sum_i y[..., i, :] / q_i) (centered=False, lifting the
+    representative in [0, Q)) or its round (centered=True, lifting the
+    one in [-Q/2, Q/2)): the HPS correction of the exact CRT basis switch,
+    int64 [..., N].
+
+    The same integers as fhe_tpu's 96-bit accumulation: 1/q_i is the
+    truncated reciprocal mu_i = floor(2^62 / q_i), v = floor((sum_i y_i
+    mu_i [+ 2^61]) / 2^62).  A float estimate, or the true floor of
+    sum y_i / q_i, differs where the sum lies near a half.  Here mu_i is
+    split at bit 31 (mu_i = a_i 2^31 + b_i), each y_i b_i < 2^62 at bit 31
+    again, and the sum is carried as hi 2^31 + lo, both far from 2^63 for
+    up to 2^31 limbs of y_i < 2^31."""
+    y = _i64(y)
+    hi = torch.zeros(y.shape[:-2] + y.shape[-1:], dtype=torch.int64, device=y.device)
+    lo = torch.zeros_like(hi)
+    for i, q in enumerate(mods):
+        mu = (1 << 62) // int(q)
+        yi = y[..., i, :]
+        p = yi * (mu & _MASK31)
+        lo += p & _MASK31
+        hi += (p >> 31) + yi * (mu >> 31)
+    if centered:
+        hi += 1 << 30                 # 2^61 = 2^30 * 2^31
+    return (hi + (lo >> 31)) >> 31

@@ -82,6 +82,16 @@ def prev_prime_congruent(start: int, m: int) -> int:
     raise ValueError("no prime found")
 
 
+def ntt_primes(count: int, N: int, below: int) -> tuple[int, ...]:
+    """`count` distinct NTT primes for ring degree N (q = 1 mod 2N), the
+    largest below `below`, in descending order."""
+    out, q = [], below
+    while len(out) < count:
+        q = prev_prime_congruent(q - 1, 2 * N)
+        out.append(q)
+    return tuple(out)
+
+
 def _factorize(n: int) -> list[int]:
     fs = []
     d = 2

@@ -64,7 +64,7 @@ def test_ntt_kernels_match_plain(N, q_bits, cuda, gen):
         _same(i, x)
 
 
-@pytest.mark.parametrize("N", [1 << 14])
+@pytest.mark.parametrize("N", [1 << 15])
 def test_ntt_kernels_reject_unlisted_n(N, cuda):
     """An N outside csrc/ntt_shapes.h: ValueError before any launch."""
     plan = ntt.make_plan(N, primes.last_prime(27, 2 * N), cuda)
@@ -343,11 +343,28 @@ def test_limb_stacked_ntt_kernels_match_plain(name, L, N, cuda, gen):
     assert after["ntt_forward"] == before["ntt_forward"]
 
 
+@pytest.mark.parametrize("L", [1, 3, 11, 16])
+def test_limb_stacked_ntt_kernels_at_ckks_width(L, cuda, gen):
+    """N = 2^14 (CKKS bench config 3) with 1, 3, 11 (its Q u P) and 16
+    limbs (kMaxLimbs), 1, 3 and SMs + 1 rows: byte-equal to the per-limb
+    loop, and the round trip."""
+    N = 1 << 14
+    moduli = primes.ntt_primes(L, N, 1 << 30)
+    plan = rns.make_rns_plan(N, moduli, cuda)
+    for rows in (1, 3, kntt.rows_per_block(N) * _sm_count(cuda) + 1):
+        x = torch.stack([_residues(gen, q, (rows, N), cuda) for q in moduli], dim=1)
+        f = rns.ntt_forward(plan, x)
+        _same(f, rns.forward_plain(plan, x))
+        i = rns.ntt_inverse(plan, f)
+        _same(i, rns.inverse_plain(plan, f))
+        _same(i, x)
+
+
 def test_limb_stacked_ntt_kernels_reject_too_many_limbs(cuda):
     """More limbs than csrc/ntt_launch.h's kMaxLimbs: ValueError before any
     launch; so is a wrong limb axis."""
     L = kntt.max_limbs() + 1
-    moduli = tuple(primes.last_prime(bits, 2048) for bits in range(24, 24 + L))
+    moduli = primes.ntt_primes(L, 1024, 1 << 30)
     plan = rns.make_rns_plan(1024, moduli, cuda)
     before = launch_counts()
     for fn in (rns.ntt_forward, rns.ntt_inverse):

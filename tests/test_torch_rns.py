@@ -34,6 +34,7 @@ from fhe_tpu_torch import convert
 from fhe_tpu_torch.kernels import ntt as kntt
 from fhe_tpu_torch.lattice import rns
 from fhe_tpu_torch.math import ntt as t_ntt
+from fhe_tpu_torch.math import primes
 from fhe_tpu_torch.parallel import BatchFlags, eval_bin_gate_batch
 from fhe_tpu_torch.tfhe import BinFheContext, Gate, RnsKey, make_params, rgsw_rns
 
@@ -177,10 +178,10 @@ def test_limb_stacked_ntt_checks():
     plan = rns.make_rns_plan(1024, make_params("TOY_RNS").moduli_rns)
     with pytest.raises(ValueError, match=r"\[\.\.\., 2, 1024\]"):
         rns.ntt_forward(plan, torch.zeros(3, 1024, dtype=torch.int32))
-    moduli = (120833, 249857, 520193, 495617, 33550337)
-    assert kntt.max_limbs() == 4
-    kntt.check_limbs(rns.make_rns_plan(1024, moduli[:4]))
-    with pytest.raises(ValueError, match="1 to 4 limbs, got 5"):
+    moduli = primes.ntt_primes(17, 1024, 1 << 27)
+    assert kntt.max_limbs() == 16
+    kntt.check_limbs(rns.make_rns_plan(1024, moduli[:16]))
+    with pytest.raises(ValueError, match="1 to 16 limbs, got 17"):
         kntt.check_limbs(rns.make_rns_plan(1024, moduli))
 
 
