@@ -14,8 +14,9 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    P x SMs + 1 rows (P rows a block: the last block has masked rows), a
    prime below 2^30 (lazy butterflies) and one in (2^30, 2^31) (canonical),
    natural and bit-reversed output and the round trip; the limb-stacked
-   ones at N = 2^14 with 1, 3, 11 and 16 limbs; N = 2^15, the first N not
-   built, refused with a ValueError; the blind rotations at batch 1, 8 and an odd
+   ones at N = 2^14 with 1, 3, 11 and 16 limbs and at N = 2^15 with 1, 3, 8
+   and 16; N = 2^16, the first N not built, refused with a ValueError; the
+   blind rotations at batch 1, 8 and an odd
    4097, which the wrappers run two ciphertexts to a block with one masked
    lane;
 4. main path, once per accumulator: STD128 keygen (once), AND and XOR on
@@ -113,7 +114,27 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    glue) and the time no kernel runs; kernels 1-2 at every shape it
    launches them at byte-equal to their plain versions, their device time
    from the trace beside their bound;
-10. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+10. [bfv], BFV (pke/bfv.py: PyTorch int64 ops around the limb-stacked NTT
+   kernels, 7 launches a relinearized product) at bench.py's config 4 (N =
+   2^15, Q 3 limbs, P 1, R 5, dnum = 3, t = 65537), keyed from SEED on the
+   card: one mul(ct, ct, evk) (HPS, HYBRID key) of m in [0, 100) with the
+   launch counters reset before and read after (the limb-stacked kernels
+   only, launches printed by shape), decrypted to m^2 mod t exactly, and
+   the BEHZ product too; the packed encoding's kernels at [1, N] with q = t;
+   add, mul_plain, rotate by 1 with a HYBRID and with a BV key and
+   dot_product over 4 ciphertexts exact against numpy; the same seed
+   through the port on the CPU gives the same HPS and BEHZ ciphertexts;
+   mul timed at batch 1 (CUDA events, median of 11; BEHZ too) and split by
+   a torch.profiler trace, beside the C++ reference's 3.021 ms on an M1
+   Max CPU (BASELINE.md:24, not a target); kernels 1-2 at its shapes
+   byte-equal to their plain versions, beside their bound;
+11. [bgv], BGV (pke/bgv.py) at N = 2^15, t = 65537, Q 4 limbs, dnum = 3:
+   mul + relinearize (launches counted), mod_reduce twice, add of a fresh
+   ciphertext and the twice-reduced product (4 and 2 limbs, two pt_scale),
+   rotate by 1 and mul_plain after a mod_reduce, each exact against numpy
+   and byte-equal to the CPU port from the same seed; mul + relinearize
+   timed and split as [bfv]'s;
+12. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
    the NTT kernels, and their plain versions, with a cold L2 (each call
@@ -210,6 +231,13 @@ RADIX_PLAIN_BATCH = 64
 CKKS_CONFIG = dict(N=1 << 14, num_levels=7, scale_bits=26, dnum=3)
 CKKS_ROTS = (1, 5)
 CKKS_BATCH = 32
+# the [bfv] phase: bench.py's config 4 (N = 2^15, Q 3 limbs, dnum = 3: P 1,
+# R 5), and the C++ reference's BFVrns MultRelin on an M1 Max CPU
+# (BASELINE.md:24), printed beside the port's mul, not a target; the [bgv]
+# phase's ring (N = 2^15, Q 4 limbs, dnum = 3: P 2)
+BFV_CONFIG = dict(N=1 << 15, num_limbs=3, plain_mod=65537, mod_bits=28, dnum=3)
+BFV_REFERENCE_CPU_MS = 3.021
+BGV_CONFIG = dict(N=1 << 15, num_levels=3, plain_mod=65537, mod_bits=28, dnum=3)
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
@@ -309,17 +337,16 @@ def _residues(rng, high, shape, dev):
     return torch.from_numpy(rng.integers(0, high, size=shape)).to(dev, torch.int32)
 
 
-def check_limb_kernels_ckks_width(dev, errors: Errors) -> None:
-    """The limb-stacked kernels at N = 2^14 with 1, 3, 11 (CKKS bench config
-    3's Q u P) and 16 limbs (kMaxLimbs), rows 1, 3 and SMs + 1."""
+def check_limb_kernels_wide(dev, errors: Errors, N: int, limb_counts: tuple) -> None:
+    """The limb-stacked kernels at N (one row a block) with each count of
+    limbs, rows 1, 3 and SMs + 1."""
     from fhe_tpu_torch.kernels import ntt as kntt
     from fhe_tpu_torch.lattice import rns
     from fhe_tpu_torch.math import primes
     rng = np.random.default_rng(SEED + 5)
-    N = 1 << 14
     rows_all = (1, 3, kntt.rows_per_block(N) * torch.cuda.get_device_properties(
         dev).multi_processor_count + 1)
-    for L in (1, 3, 11, kntt.max_limbs()):
+    for L in limb_counts:
         plan = rns.make_rns_plan(N, primes.ntt_primes(L, N, 1 << 30), dev)
         for rows in rows_all:
             x = torch.stack([_residues(rng, q, (rows, N), dev) for q in plan.moduli], dim=1)
@@ -364,7 +391,10 @@ def check_ntt_kernels(dev, errors: Errors) -> None:
             arith = "lazy" if q < kntt.LAZY_Q else "canonical"
             print(f"[kernels] ntt N={N} q={q} ({arith}), rows {rows_all}: forward, forward "
                   f"out_br, inverse, round trip byte-equal to the plain versions")
-    check_limb_kernels_ckks_width(dev, errors)
+    # CKKS bench config 3's Q u P (11 limbs), BFV bench config 4's Q u R (8),
+    # and kMaxLimbs
+    check_limb_kernels_wide(dev, errors, 1 << 14, (1, 3, 11, kntt.max_limbs()))
+    check_limb_kernels_wide(dev, errors, 1 << 15, (1, 3, 8, kntt.max_limbs()))
     N = 2 * max(kntt.sizes())
     plan = ntt.make_plan(N, primes.last_prime(27, 2 * N), dev)
     before = kernels.launch_counts()
@@ -1678,13 +1708,13 @@ def ckks_ops(ctx, rng, sk, pk, ct, z, w):
     return out, ct2, z2
 
 
-def ckks_limb_kernels(dev, shapes: collections.Counter, dev_ms: dict, errors: Errors,
-                      int_peak: float, card: str) -> None:
-    """Kernels 1-2 at every (kernel, shape, basis) a mul_rescale launched:
+def limb_kernels_at(tag: str, call: str, dev, shapes: collections.Counter, dev_ms: dict,
+                    errors: Errors, int_peak: float, card: str) -> None:
+    """Kernels 1-2 at every (kernel, shape, basis) a call launched:
     byte-equal to their plain versions on random residues; their device
-    time a launch in the mul_rescale (dev_ms, from its trace) and 10
-    launches back to back on these residues (with the host's issue), beside
-    their bound."""
+    time a launch in the call (dev_ms, from its trace) and 10 launches back
+    to back on these residues (with the host's issue), beside their
+    bound."""
     from fhe_tpu_torch.lattice import rns
     gen = np.random.default_rng(SEED + 6)
     ops = {"ntt_forward_limbs": (rns.ntt_forward, rns.forward_plain),
@@ -1694,7 +1724,7 @@ def ckks_limb_kernels(dev, shapes: collections.Counter, dev_ms: dict, errors: Er
         plan = rns.make_rns_plan(N, moduli, dev)
         x = torch.stack([_residues(gen, q, (rows, N), dev) for q in moduli], dim=1)
         fn, plain = ops[kernel]
-        errors.compare(kernel, fn(plan, x), plain(plan, x), f"[ckks] {kernel} {list(shape)}",
+        errors.compare(kernel, fn(plan, x), plain(plan, x), f"{tag} {kernel} {list(shape)}",
                        show=False)
         ms = time_ms(lambda: [fn(plan, x) for _ in range(10)], reps=5) / 10
         p_ms = time_ms(lambda: plain(plan, x), reps=3)
@@ -1704,9 +1734,9 @@ def ckks_limb_kernels(dev, shapes: collections.Counter, dev_ms: dict, errors: Er
         d_ms = dev_ms.get((kernel, shape, moduli))
         d_txt = (f"{d_ms:.4f} ms a launch on the device (trace), at {b_ms / d_ms:.3f} of the "
                  f"bound" if d_ms else "device time not measured (no trace)")
-        print(f"[ckks] {kernel} {list(shape)}: {d_txt}; {ms:.4f} ms a launch 10 back to back "
+        print(f"{tag} {kernel} {list(shape)}: {d_txt}; {ms:.4f} ms a launch 10 back to back "
               f"(with the host's issue); plain {p_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}; "
-              f"byte-equal to the plain version; {n} launches a mul_rescale  ({card})")
+              f"byte-equal to the plain version; {n} launches a {call}  ({card})")
 
 
 def kernel_trace(fn, reps: int) -> list[dict]:
@@ -1729,8 +1759,8 @@ def kernel_trace(fn, reps: int) -> list[dict]:
              "us": float(e["dur"])} for e in events if e.get("cat") == "kernel" and "dur" in e]
 
 
-def ckks_device_split(what: str, fn, reps: int, wall_ms: float, shapes: collections.Counter,
-                      card: str) -> dict:
+def device_split(tag: str, what: str, fn, reps: int, wall_ms: float,
+                 shapes: collections.Counter, card: str) -> dict:
     """Prints one call of fn split, from kernel_trace, into kernels 1-2, the
     other kernels (the int64 glue) and the rest of its CUDA-event time
     wall_ms, where the card waits on the host; returns the limb kernels'
@@ -1738,7 +1768,7 @@ def ckks_device_split(what: str, fn, reps: int, wall_ms: float, shapes: collecti
     from fhe_tpu_torch.kernels import ntt as kntt
     ks = kernel_trace(fn, reps)
     if not ks:
-        print(f"[ckks] {what}: {wall_ms:.3f} ms; the profiler trace holds no kernel: the device "
+        print(f"{tag} {what}: {wall_ms:.3f} ms; the profiler trace holds no kernel: the device "
               f"split is not measured  ({card})")
         return {}
     is_limb = lambda k: "_limbs_kernel" in k["name"]
@@ -1746,7 +1776,7 @@ def ckks_device_split(what: str, fn, reps: int, wall_ms: float, shapes: collecti
     glue = sum(k["us"] for k in ks if not is_limb(k)) / reps / 1e3
     n_glue = sum(1 for k in ks if not is_limb(k)) / reps
     rest = wall_ms - limb - glue
-    print(f"[ckks] {what}: {wall_ms:.3f} ms (CUDA events, median); device time a call from a "
+    print(f"{tag} {what}: {wall_ms:.3f} ms (CUDA events, median); device time a call from a "
           f"torch.profiler trace of {reps} calls: kernels 1-2 {limb:.4f} ms ({limb / wall_ms:.3f})"
           f", the other {n_glue:g} kernels (the int64 glue) {glue:.4f} ms "
           f"({glue / wall_ms:.3f}), no kernel running {rest:.4f} ms ({rest / wall_ms:.3f})  "
@@ -1790,19 +1820,7 @@ def ckks_phase(dev, errors: Errors, card: str) -> dict:
 
     # the counted run: one mul_rescale
     ctx.mul_rescale(ct, ct, pevk)                                  # warm
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    with limb_launch_shapes() as shapes:
-        out = ctx.mul_rescale(ct, ct, pevk)
-        torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    others = {k: v for k, v in launches.items() if k not in LIMB_KERNELS and v}
-    if others or not all(launches[k] for k in LIMB_KERNELS):
-        fail(f"{tag} mul_rescale launches {launches}: the limb-stacked kernels only, each at "
-             f"least once")
-    print(f"{tag} mul_rescale launches: {launches} (kernels 3-5 and the single-modulus NTTs: 0)")
-    for (kernel, shape, moduli), n in sorted(shapes.items()):
-        print(f"{tag} mul_rescale: {kernel} {list(shape)} x {n}")
+    out, launches, shapes = counted(tag, "mul_rescale", lambda: ctx.mul_rescale(ct, ct, pevk))
 
     ckks_values_close("mul_rescale(ct, ct) against z^2", ctx.decrypt(sk, out).real, z * z, 1e-2)
     ckks_same("mul + relinearize + rescale against mul_rescale",
@@ -1867,18 +1885,230 @@ def ckks_phase(dev, errors: Errors, card: str) -> dict:
     int_peak = int_multiply_peak(dev)
     one_ms = time_ms(lambda: ctx.mul_rescale(ct, ct, pevk), reps=11)
     batch_ms = time_ms(lambda: ctx.mul_rescale(batch, batch, pevk), reps=5)
-    dev_one = ckks_device_split("mul_rescale batch 1", lambda: ctx.mul_rescale(ct, ct, pevk),
-                                11, one_ms, shapes, card)
-    dev_b = ckks_device_split(f"mul_rescale batch {CKKS_BATCH}",
-                              lambda: ctx.mul_rescale(batch, batch, pevk), 5, batch_ms,
-                              batch_shapes, card)
-    ckks_limb_kernels(dev, shapes, dev_one, errors, int_peak, card)
-    ckks_limb_kernels(dev, batch_shapes, dev_b, errors, int_peak, card)
+    dev_one = device_split(tag, "mul_rescale batch 1", lambda: ctx.mul_rescale(ct, ct, pevk),
+                           11, one_ms, shapes, card)
+    dev_b = device_split(tag, f"mul_rescale batch {CKKS_BATCH}",
+                         lambda: ctx.mul_rescale(batch, batch, pevk), 5, batch_ms,
+                         batch_shapes, card)
+    limb_kernels_at(tag, "mul_rescale", dev, shapes, dev_one, errors, int_peak, card)
+    limb_kernels_at(tag, "mul_rescale", dev, batch_shapes, dev_b, errors, int_peak, card)
     print(f"{tag} mul_rescale batch {CKKS_BATCH}: {batch_ms:.3f} ms = "
           f"{batch_ms / CKKS_BATCH:.4f} ms a ciphertext; launches {dict(batch_launches)}  "
           f"({card})")
     print(f"{tag} peak device memory so far: "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return {name: launches[name] for name in LIMB_KERNELS}
+
+
+def pke_same(tag: str, what: str, a, b) -> None:
+    """BFV or BGV ciphertexts a and b byte-equal, pt_scale too (BGV)."""
+    comps = lambda c: [x for x in (c.c0, c.c1, c.c2) if x is not None]
+    if (a.moduli != b.moduli or getattr(a, "pt_scale", 1) != getattr(b, "pt_scale", 1) or
+            len(comps(a)) != len(comps(b)) or
+            not all(torch.equal(x.data.cpu(), y.data.cpu()) for x, y in zip(comps(a), comps(b)))):
+        fail(f"{tag} {what}: the ciphertexts differ")
+    print(f"{tag} {what}: byte-equal ({len(a.moduli)} limbs)")
+
+
+def pke_exact(tag: str, what: str, got, want) -> None:
+    wrong = int((np.asarray(got) != np.asarray(want)).sum())
+    print(f"{tag} {what}: {wrong} of {len(want)} slots wrong against numpy")
+    if wrong:
+        fail(f"{tag} {what}: {wrong} slots wrong")
+
+
+def rotated_slots(m: np.ndarray, r: int) -> np.ndarray:
+    """The packed slots after rotate(r): the automorphism 5^r moves the
+    mod-t NTT's points, slot i taking slot j with 2j + 1 = (2i + 1) 5^r."""
+    N = len(m)
+    i = np.arange(N)
+    return m[((2 * i + 1) * pow(5, r, 2 * N) % (2 * N) - 1) // 2]
+
+
+def counted(tag: str, call: str, fn):
+    """One call of fn with the launch counters reset before and read
+    after: (its result, launches, (kernel, shape, basis) counts); fails
+    unless it launched the limb-stacked kernels only, each at least once."""
+    from fhe_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with limb_launch_shapes() as shapes:
+        out = fn()
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    others = {k: v for k, v in launches.items() if k not in LIMB_KERNELS and v}
+    if others or not all(launches[k] for k in LIMB_KERNELS):
+        fail(f"{tag} {call} launches {launches}: the limb-stacked kernels only, each at least once")
+    print(f"{tag} {call} launches: {dict(launches)} (kernels 3-5 and the single-modulus NTTs: 0)")
+    for (kernel, shape, moduli), n in sorted(shapes.items()):
+        print(f"{tag} {call}: {kernel} {list(shape)} x {n}")
+    return out, launches, shapes
+
+
+def bfv_keys(ctx, seed: int):
+    """keygen, the relinearization key (HYBRID) and the encryption of m in
+    [0, 100) (bench.py:299-300), from seed: the draws the card and the CPU
+    both make."""
+    rng = np.random.default_rng(seed)
+    sk, pk = ctx.keygen(rng)
+    evk = ctx.relin_key_gen(sk, rng)
+    m = rng.integers(0, 100, size=ctx.params.N)
+    return rng, sk, pk, evk, m, ctx.encrypt(pk, m, rng)
+
+
+def slot_kernels(tag: str, dev, N: int, t: int, errors: Errors, int_peak: float,
+                 card: str) -> None:
+    """Kernels 1-2 at [1, N] with q = t, the packed encoding's NTTs:
+    byte-equal to their plain versions, timed 10 back to back."""
+    from fhe_tpu_torch.math import ntt
+    plan = ntt.make_plan(N, t, dev)
+    x = _residues(np.random.default_rng(SEED + 8), t, (1, N), dev)
+    butterflies = N // 2 * plan.logN
+    for name, kern, plain, muls in (
+            ("ntt_inverse", ntt.ntt_inverse, ntt.inverse_butterfly, 3 * (butterflies + N)),
+            ("ntt_forward", ntt.ntt_forward, ntt.forward_butterfly, 3 * butterflies)):
+        errors.compare(name, kern(plan, x), plain(plan, x), f"{tag} {name} [1, {N}] q = t = {t}",
+                       show=False)
+        ms = time_ms(lambda: [kern(plan, x) for _ in range(10)], reps=5) / 10
+        p_ms = time_ms(lambda: plain(plan, x), reps=3)
+        b_ms, b_by = bound(_nbytes(x, x, plan.fwd_w, plan.fwd_ws), muls, int_peak)
+        print(f"{tag} {name} [1, {N}] q = t: byte-equal to the plain version; {ms:.4f} ms a "
+              f"launch 10 back to back (with the host's issue); plain {p_ms:.3f} ms; bound "
+              f"{b_ms:.4f} ms by {b_by}; 1 launch {'an encode' if kern is ntt.ntt_inverse else 'a decode'}"
+              f"  ({card})")
+
+
+def bfv_phase(dev, errors: Errors, card: str) -> dict:
+    """The [bfv] phase: BFV bench config 4 keyed from SEED on the card;
+    returns the launches of one counted mul."""
+    from fhe_tpu_torch import kernels
+    from fhe_tpu_torch.pke import bfv, rlwe
+    t_phase = time.perf_counter()
+    tag = "[bfv]"
+    ctx = bfv.BfvContext.create(**BFV_CONFIG, device=dev)
+    p, t = ctx.params, ctx.t
+    N = p.N
+    print(f"{tag} bench config 4: N = {N}, Q = {p.moduli}, P = {p.special_mods}, R = "
+          f"{bfv.aux_basis(p)}, t = {t}, dnum = {p.num_part_q}; HPS, HYBRID relinearization")
+    t0 = time.perf_counter()
+    rng, sk, pk, evk, m, ct = bfv_keys(ctx, SEED)
+    pevk = rlwe.prepare_evk(p, evk)
+    torch.cuda.synchronize()
+    print(f"{tag} keygen + relin_key_gen + encrypt on {dev}: {time.perf_counter() - t0:.3f} s "
+          f"(host clock, with the host draws); evk {tuple(evk.b.shape)} x 2")
+
+    # the counted run: one mul(ct, ct, evk)
+    ctx.mul(ct, ct, pevk)                                           # warm
+    out, launches, shapes = counted(tag, "mul", lambda: ctx.mul(ct, ct, pevk))
+    pke_exact(tag, "mul(ct, ct, evk), HPS, against m^2 mod t", ctx.decrypt(sk, out), m * m % t)
+    behz = ctx.mul(ct, ct, pevk, technique="behz")
+    pke_exact(tag, "mul(ct, ct, evk), BEHZ, against m^2 mod t", ctx.decrypt(sk, behz), m * m % t)
+    kernels.reset_launch_counts()
+    ctx.make_plaintext(m)
+    enc = kernels.launch_counts()
+    if (enc["ntt_inverse"], enc["ntt_forward_limbs"]) != (1, 1) or sum(enc.values()) != 2:
+        fail(f"{tag} make_plaintext launches {enc}: the encode's inverse NTT and one forward")
+    print(f"{tag} make_plaintext (packed encoding, x Delta, to EVAL) launches: {dict(enc)}")
+
+    # the ops, from the same generator: rotation keys, more ciphertexts
+    rot_h = ctx.rotation_key_gen(sk, [1], rng)
+    rot_bv = ctx.rotation_key_gen(sk, [1], rng, method="bv")
+    ms = [m] + [rng.integers(0, t, size=N) for _ in range(3)]
+    cts = [ct] + [ctx.encrypt(pk, x, rng) for x in ms[1:]]
+    ws = [rng.integers(0, t, size=N) for _ in range(4)]
+    want = {"add": (ctx.add(cts[0], cts[1]), (ms[0] + ms[1]) % t),
+            "mul_plain": (ctx.mul_plain(cts[1], ws[0]), ms[1] * ws[0] % t),
+            "rotate by 1, HYBRID key": (ctx.rotate(cts[1], 1, rot_h), rotated_slots(ms[1], 1)),
+            "rotate by 1, BV key": (ctx.rotate(cts[1], 1, rot_bv), rotated_slots(ms[1], 1)),
+            "dot_product of 4": (ctx.dot_product(cts, ws),
+                                 sum(x * w % t for x, w in zip(ms, ws)) % t)}
+    for op, (got, values) in want.items():
+        pke_exact(tag, op, ctx.decrypt(sk, got), values)
+
+    t0 = time.perf_counter()
+    cpu = bfv.BfvContext.create(**BFV_CONFIG, device="cpu")
+    _, _, _, cpu_evk, _, cpu_ct = bfv_keys(cpu, SEED)
+    cpu_out = cpu.mul(cpu_ct, cpu_ct, cpu_evk)
+    cpu_behz = cpu.mul(cpu_ct, cpu_ct, cpu_evk, technique="behz")
+    cpu_s = time.perf_counter() - t0
+    pke_same(tag, f"the card's mul (HPS) against the CPU port's, same seed ({cpu_s:.1f} s on the "
+             f"CPU with the keys)", cpu_out, out)
+    pke_same(tag, "the card's mul (BEHZ) against the CPU port's", cpu_behz, behz)
+
+    # timings: CUDA events around the calls; the device split from a
+    # torch.profiler trace of them
+    int_peak = int_multiply_peak(dev)
+    one_ms = time_ms(lambda: ctx.mul(ct, ct, pevk), reps=11)
+    behz_ms = time_ms(lambda: ctx.mul(ct, ct, pevk, technique="behz"), reps=11)
+    dev_one = device_split(tag, "mul batch 1 (HPS)", lambda: ctx.mul(ct, ct, pevk), 11, one_ms,
+                           shapes, card)
+    limb_kernels_at(tag, "mul", dev, shapes, dev_one, errors, int_peak, card)
+    slot_kernels(tag, dev, N, t, errors, int_peak, card)
+    print(f"{tag} mul (HPS) batch 1: {one_ms:.3f} ms, BEHZ {behz_ms:.3f} ms (CUDA events, median "
+          f"of 11); the C++ reference's BFVrns MultRelin on an M1 Max CPU: "
+          f"{BFV_REFERENCE_CPU_MS} ms (BASELINE.md:24, not a target)  ({card})")
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return {name: launches[name] for name in LIMB_KERNELS}
+
+
+def bgv_keys(ctx, seed: int):
+    """keygen, the relinearization and rotation keys (noise x t) and the
+    ciphertexts of m1, m2 in [0, t), from seed."""
+    rng = np.random.default_rng(seed)
+    sk, pk = ctx.keygen(rng)
+    evk = ctx.relin_key_gen(sk, rng)
+    rot = ctx.rotation_key_gen(sk, [1], rng)
+    ms = rng.integers(0, ctx.t, size=(3, ctx.params.N))
+    return sk, evk, rot, ms, [ctx.encrypt(pk, x, rng) for x in ms[:2]]
+
+
+def bgv_ops(ctx, evk, rot, ms, cts) -> dict:
+    """{op: (ciphertext, its slots)}: the product, mod_reduce twice, add of
+    a fresh ciphertext to the twice-reduced product (4 and 2 limbs, other
+    pt_scale), rotate and mul_plain."""
+    t = ctx.t
+    m1, m2, w = ms
+    sq = m1 * m2 % t
+    prod = ctx.mul(cts[0], cts[1], evk)
+    red1 = ctx.mod_reduce(prod)
+    red2 = ctx.mod_reduce(red1)
+    return {"mul + relinearize": (prod, sq), "mod_reduce once": (red1, sq),
+            "mod_reduce twice": (red2, sq),
+            f"add at {len(cts[0].moduli)} and {len(red2.moduli)} limbs, pt_scale 1 and "
+            f"{red2.pt_scale}": (ctx.add(cts[0], red2), (m1 + sq) % t),
+            "rotate by 1": (ctx.rotate(cts[0], 1, rot), rotated_slots(m1, 1)),
+            "mul_plain after a mod_reduce": (ctx.mul_plain(red1, w), sq * w % t)}
+
+
+def bgv_phase(dev, errors: Errors, card: str) -> dict:
+    """The [bgv] phase: BGV at N = 2^15 keyed from SEED on the card;
+    returns the launches of one counted mul + relinearize."""
+    from fhe_tpu_torch.pke import bgv
+    t_phase = time.perf_counter()
+    tag = "[bgv]"
+    ctx = bgv.BgvContext.create(**BGV_CONFIG, device=dev)
+    p = ctx.params
+    print(f"{tag} N = {p.N}, Q = {p.moduli}, P = {p.special_mods}, t = {ctx.t}, dnum = "
+          f"{p.num_part_q}")
+    sk, evk, rot, ms, cts = bgv_keys(ctx, SEED + 12)
+    ctx.mul(cts[0], cts[1], evk)                                    # warm
+    _, launches, shapes = counted(tag, "mul + relinearize", lambda: ctx.mul(cts[0], cts[1], evk))
+    ops = bgv_ops(ctx, evk, rot, ms, cts)
+    for op, (got, values) in ops.items():
+        pke_exact(tag, op, ctx.decrypt(sk, got), values)
+    t0 = time.perf_counter()
+    cpu = bgv.BgvContext.create(**BGV_CONFIG, device="cpu")
+    cpu_ops = bgv_ops(cpu, *bgv_keys(cpu, SEED + 12)[1:])
+    cpu_s = time.perf_counter() - t0
+    for op, (got, _) in ops.items():
+        pke_same(tag, f"the card's {op} against the CPU port's", cpu_ops[op][0], got)
+    print(f"{tag} the CPU port's keys and ops, same seed: {cpu_s:.1f} s")
+    mul_ms = time_ms(lambda: ctx.mul(cts[0], cts[1], evk), reps=11)
+    int_peak = int_multiply_peak(dev)
+    dev_ms = device_split(tag, "mul + relinearize batch 1", lambda: ctx.mul(cts[0], cts[1], evk),
+                          11, mul_ms, shapes, card)
+    limb_kernels_at(tag, "mul + relinearize", dev, shapes, dev_ms, errors, int_peak, card)
     print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
     return {name: launches[name] for name in LIMB_KERNELS}
 
@@ -2087,8 +2317,10 @@ def main() -> int:
     radix_launches, radix_times = radix_phase(dev, errors, card)
     launches.update(radix_launches)
     ckks_launches = ckks_phase(dev, errors, card)
+    bfv_launches = bfv_phase(dev, errors, card)
+    bgv_launches = bgv_phase(dev, errors, card)
     for name in LIMB_KERNELS:
-        launches[name] += ckks_launches[name]
+        launches[name] += ckks_launches[name] + bfv_launches[name] + bgv_launches[name]
     times = timings(dev, ctx, key, cts, errors, card)
     times.update(rns_times)
     times.update(radix_times)

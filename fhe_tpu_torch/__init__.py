@@ -12,8 +12,8 @@ reinterpret the words as uint32.
 """
 
 from . import convert, lattice, math, parallel, pke, tfhe
-from .pke import CkksContext
+from .pke import BfvContext, BgvContext, CkksContext
 from .tfhe import BinFheContext, Gate, Method, make_params
 
-__all__ = ["BinFheContext", "CkksContext", "Gate", "Method", "make_params", "convert",
+__all__ = ["BfvContext", "BgvContext", "BinFheContext", "CkksContext", "Gate", "Method", "make_params", "convert",
            "lattice", "math", "parallel", "pke", "tfhe"]

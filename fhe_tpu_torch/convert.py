@@ -2,8 +2,10 @@
 
 The functions take the arrays of fhe_tpu's objects as numpy arrays (for
 example `np.asarray(key.bsk)`), so this package never imports jax: the
-TFHE keys and ciphertexts, and CKKS's (`rlwe_secret_key`,
-`rlwe_public_key`, `eval_key`, `prepared_eval_key`, `ckks_ciphertext`).
+TFHE keys and ciphertexts, the RLWE keys (`rlwe_secret_key`,
+`rlwe_public_key`, `eval_key`, `prepared_eval_key`, `bv_eval_key`) and the
+CKKS, BGV and BFV ciphertexts (`ckks_ciphertext`, `bgv_ciphertext`,
+`bfv_ciphertext`).
 Residues are uint32 below 2^31 in fhe_tpu and int32 here; the secret key
 is small signed integers in both.  The tensors go to the first CUDA card
 unless the caller names another device.
@@ -16,6 +18,8 @@ import torch
 
 from .lattice.rns import EVAL, RnsPoly
 from .pke import rlwe
+from .pke.bfv import Ciphertext as BfvCiphertext
+from .pke.bgv import Ciphertext as BgvCiphertext
 from .pke.ckks import Ciphertext as CkksCiphertext
 from .tfhe.acc import DmKey, LmkcdeyKey
 from .tfhe.lwe import LweCiphertext, LwePublicKey, LweSecretKey, LweSwitchingKey
@@ -100,7 +104,7 @@ def _ksk(ksk_a, ksk_b, device) -> LweSwitchingKey:
 
 
 # ---------------------------------------------------------------------------
-# CKKS (fhe_tpu/pke): ring data is [..., L, N] uint32 residues, EVAL
+# RLWE schemes (fhe_tpu/pke): ring data is [..., L, N] uint32 residues, EVAL
 # ---------------------------------------------------------------------------
 
 def rlwe_secret_key(s_signed, s_eval_full, moduli_full, device="cuda") -> rlwe.SecretKey:
@@ -145,6 +149,34 @@ def ckks_ciphertext(c0, c1, moduli, scale: float, c2=None, c_rest=(),
     return CkksCiphertext(c0=poly(c0, "c0"), c1=poly(c1, "c1"), scale=float(scale),
                           c2=None if c2 is None else poly(c2, "c2"),
                           c_rest=tuple(poly(c, "c_rest") for c in c_rest))
+
+
+def bv_eval_key(b, a, moduli, digit_bits: int, rows_per_limb, device="cuda") -> rlwe.BvEvalKey:
+    """fhe_tpu rlwe.BvEvalKey (b, a [n_rows, L, N], moduli, digit_bits,
+    rows_per_limb) -> BvEvalKey."""
+    rows = tuple(int(r) for r in rows_per_limb)
+    if len(rows) != len(moduli) or np.asarray(b).shape[0] != sum(rows):
+        raise ValueError(f"a BV key over {len(moduli)} limbs has one row count a limb and "
+                         f"their sum of rows; got {rows} and b {np.asarray(b).shape}")
+    return rlwe.BvEvalKey(b=_limbs(b, moduli, "b", device), a=_limbs(a, moduli, "a", device),
+                          moduli=tuple(int(q) for q in moduli), digit_bits=int(digit_bits),
+                          rows_per_limb=rows)
+
+
+def bgv_ciphertext(c0, c1, moduli, pt_scale: int = 1, c2=None, device="cuda") -> BgvCiphertext:
+    """fhe_tpu bgv.Ciphertext (c0.data, c1.data, c0.moduli, pt_scale, and
+    c2.data where present) -> Ciphertext."""
+    poly = lambda x, name: _poly(x, moduli, name, device)
+    return BgvCiphertext(c0=poly(c0, "c0"), c1=poly(c1, "c1"),
+                         c2=None if c2 is None else poly(c2, "c2"), pt_scale=int(pt_scale))
+
+
+def bfv_ciphertext(c0, c1, moduli, c2=None, device="cuda") -> BfvCiphertext:
+    """fhe_tpu bfv.Ciphertext (c0.data, c1.data, c0.moduli, and c2.data
+    where present) -> Ciphertext."""
+    poly = lambda x, name: _poly(x, moduli, name, device)
+    return BfvCiphertext(c0=poly(c0, "c0"), c1=poly(c1, "c1"),
+                         c2=None if c2 is None else poly(c2, "c2"))
 
 
 def _limbs(x, moduli, name: str, device) -> torch.Tensor:

@@ -37,12 +37,20 @@
 // - A round's twiddles are read once per item, through L1, a stage's run
 //   of consecutive entries in as few vector loads as it takes.
 //
-// - N = 2^14 (CKKS bench config 3): a block holds 1024 threads, so each
-//   takes two of the row's N/8 edge-round threads, one after the other;
-//   the middle rounds are two 16-value rounds, one item a thread.  The
-//   64 KiB exchange buffer is dynamic shared memory (static shared memory
-//   stops at 48 KiB), and ntt_word has its own swizzle for the bits of
-//   2^14.  The smaller N compile to the kernels they were.
+// - N = 2^14 (CKKS bench config 3) and 2^15 (BFV bench config 4): a block
+//   holds 1024 threads, so each takes two (four at 2^15) of the row's N/8
+//   edge-round threads, one after the other; the middle rounds are two
+//   16-value rounds at 2^14 (one item a thread) and three 8-value rounds
+//   at 2^15 (four items a thread: a 32-value round would spill, a thread of
+//   a 1024-thread block has 64 registers).  The 64 (128) KiB exchange
+//   buffer is dynamic shared memory (static shared memory stops at 48 KiB,
+//   a block may have 227 KiB), and ntt_word has its own swizzle for the
+//   top bits of these N.  At 2^15 the one-block row was kept over a
+//   two-pass four-step transform: it reads and writes each row once, as at
+//   the smaller N, needs no second launch or transpose, and builds with 64
+//   registers and no spill; its cost is one resident block a SM (128 KiB
+//   of shared memory), so a short batch fills the card only through its
+//   rows times limbs.  The smaller N compile to the kernels they were.
 //
 // The limb-stacked kernels (forward_limbs_kernel, inverse_limbs_kernel) run
 // the same rows on an RNS ring element [rows, L, N] (fhe_tpu/lattice/rns.py
@@ -67,7 +75,7 @@ namespace ntt {
 template <int LogN>
 constexpr int kThreads = kRows<LogN> * kRowThreads<LogN>;
 
-// Edge-round threads each thread runs (2 at N = 2^14, else 1).
+// Edge-round threads each thread runs (2 at N = 2^14, 4 at 2^15, else 1).
 template <int LogN>
 constexpr int kEach = kG<LogN> / kRowThreads<LogN>;
 

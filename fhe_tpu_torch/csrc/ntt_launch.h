@@ -34,7 +34,8 @@ struct Args {
 // A row's edge-round threads (N/8, each on 8 values) and rows per block:
 // about 256 threads a block where N <= 2048, one row a block above.  A
 // block has at most 1024 threads, so at N = 2^14 each of a row's 1024
-// threads takes two of its N/8 edge-round threads (kRowThreads).
+// threads takes two of its N/8 edge-round threads, at 2^15 four
+// (kRowThreads).
 template <int LogN>
 constexpr int kG = 1 << (LogN - 3);
 template <int LogN>

@@ -159,7 +159,7 @@ __device__ __forceinline__ int word(int row, int x, int c) {
 // The swizzle is the step's (bits 5-7 onto bank bits 0-2, bits 7-8 onto
 // 3-4) with bit 8 also onto bank bit 3, bit 9 onto 3 and bits 10-12 onto
 // 0-2: each of those lane sets then maps onto 32 distinct banks, for
-// 9 <= LogN <= 13.  The swizzle is linear in the bits of x, so where x =
+// 9 <= LogN <= 13 (ntt_swizzled_top above).  The swizzle is linear in the bits of x, so where x =
 // base | off with no bit in common, the word is ntt_word(row, base) XOR a
 // constant of off: NttRounds::at computes the base's word once per item and
 // one XOR per access.
@@ -167,18 +167,21 @@ __device__ __forceinline__ constexpr int ntt_swizzled(int x) {
   return x ^ ((x >> 5) & 7) ^ ((x >> 4) & 24) ^ (((x >> 5) ^ (x >> 6)) & 8) ^ ((x >> 10) & 7);
 }
 
-// At N = 2^14 the lanes vary position bits 0-4, bits 0-2 and 7-8, bits
-// 3-7 and the top five bits 9-13: bits 5-7 onto bank bits 0-2, bits 7-8
-// onto 3-4 and bits 9-13 onto 0-4 map each of those sets onto 32 distinct
-// banks.  (ntt_swizzled sends no bit onto bank bit 4 from bit 13.)
-__device__ __forceinline__ constexpr int ntt_swizzled14(int x) {
-  return x ^ ((x >> 5) & 7) ^ ((x >> 4) & 24) ^ ((x >> 9) & 31);
+// From N = 2^14 the lanes vary position bits 0-4, bits 0-2 and 7-8, bits
+// 3-7 and the top five bits LogN-5..LogN-1: bits 5-7 onto bank bits 0-2,
+// bits 7-8 onto 3-4 and the top five bits onto 0-4 map each of those sets
+// onto 32 distinct banks.  (ntt_swizzled sends no bit onto bank bit 4 from
+// bit 13.)  At 2^15 the middle rounds' lanes vary bits 0-2 and 7-8 (the
+// first, over bits 3-5) or bits 0-4 (the others), sets the same map takes.
+template <int LogN>
+__device__ __forceinline__ constexpr int ntt_swizzled_top(int x) {
+  return x ^ ((x >> 5) & 7) ^ ((x >> 4) & 24) ^ ((x >> (LogN - 5)) & 31);
 }
 
 template <int LogN>
 __device__ __forceinline__ constexpr int ntt_swizzle(int x) {
-  if constexpr (LogN == 14) {
-    return ntt_swizzled14(x);
+  if constexpr (LogN >= 14) {
+    return ntt_swizzled_top<LogN>(x);
   } else {
     return ntt_swizzled(x);
   }
@@ -186,7 +189,7 @@ __device__ __forceinline__ constexpr int ntt_swizzle(int x) {
 
 template <int LogN>
 __device__ __forceinline__ int ntt_word(int row, int x) {
-  static_assert(LogN >= 9 && LogN <= 14, "ntt_word: 9 <= LogN <= 14");
+  static_assert(LogN >= 9 && LogN <= 15, "ntt_word: 9 <= LogN <= 15");
   return (row << LogN) + ntt_swizzle<LogN>(x);
 }
 
@@ -260,15 +263,26 @@ __device__ __forceinline__ void mid_round(uint32_t* buf, int g, int c, const Tab
 }
 
 // The middle rounds (position bits 3 .. LogN-4: one round of LogN - 6
-// bits, or two where that is above 4), each ending in a barrier that every
-// thread of the block reaches.
+// bits, two where that is above 4, three 8-value rounds where it is 9, at
+// N = 2^15: a 32-value round would not fit the 64 registers a thread of a
+// 1024-thread block has), each ending in a barrier that every thread of
+// the block reaches.
 template <bool kFwd, int LogN, int P, int C, class R = StepRounds<LogN, C>>
 __device__ __forceinline__ void mid_rounds(uint32_t* buf, int g, int c, bool valid,
                                            const Tables& t, uint32_t q) {
   constexpr int M = LogN - 6;
-  static_assert(M >= 1 && M <= 8, "LogN out of range");
+  static_assert(M >= 1 && M <= 9, "LogN out of range");
   if constexpr (M <= 4) {
     if (valid) mid_round<kFwd, LogN, 3, M, P, C, R>(buf, g, c, t, q);
+    __syncthreads();
+  } else if constexpr (M == 9) {
+    // forward: bits 9-11, 6-8, 3-5; inverse: the other way round
+    constexpr int B_first = kFwd ? 9 : 3, B_last = kFwd ? 3 : 9;
+    if (valid) mid_round<kFwd, LogN, B_first, 3, P, C, R>(buf, g, c, t, q);
+    __syncthreads();
+    if (valid) mid_round<kFwd, LogN, 6, 3, P, C, R>(buf, g, c, t, q);
+    __syncthreads();
+    if (valid) mid_round<kFwd, LogN, B_last, 3, P, C, R>(buf, g, c, t, q);
     __syncthreads();
   } else {
     constexpr int W1 = (M + 1) / 2, W2 = M - W1;

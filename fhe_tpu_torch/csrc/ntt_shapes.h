@@ -1,11 +1,12 @@
 // The log2 N the NTT kernels (ntt.cuh) are instantiated for: every ring
 // dimension of the parameter sets (tfhe/params.py), TOY's 2^9 to
 // TOY_RADIX's 2^13, 2^12, which no set uses but callers of the NTT itself
-// had before the kernels were specialised, and CKKS bench config 3's 2^14
-// (pke/ckks.py).  One list for the build (kernels/_build.py compiles
-// ntt_inst.cu once per entry), the dispatch (ntt.cu) and the Python
-// wrappers' check (kernels/ntt.py parses it).  2^14 is the largest the
-// design takes (ntt_word's swizzles, 64 KiB of dynamic shared memory).
+// had before the kernels were specialised, CKKS bench config 3's 2^14
+// (pke/ckks.py) and BFV bench config 4's 2^15 (pke/bfv.py).  One list for
+// the build (kernels/_build.py compiles ntt_inst.cu once per entry), the
+// dispatch (ntt.cu) and the Python wrappers' check (kernels/ntt.py parses
+// it).  2^15 is the largest the design takes (ntt_word's swizzles, the
+// three middle rounds of mid_rounds, 128 KiB of dynamic shared memory).
 #pragma once
 
 #define FHE_NTT_SHAPES(X) \
@@ -14,4 +15,5 @@
   X(11)                   \
   X(12)                   \
   X(13)                   \
-  X(14)
+  X(14)                   \
+  X(15)

@@ -17,9 +17,9 @@ residues is exact, and every product is reduced mod its limb before a sum
 (a basis switch sums L of them).  fhe_tpu multiplies in Montgomery form
 against Montgomery-form constants; the port multiplies plain residues by
 plain constants, which gives the same canonical residues, so every result
-is byte-equal.  fhe_tpu's BEHZ / HPS kit for BFV
-(`scale_and_round_t_over_q`, `fast_base_conv_*`, `fast_rns_floor_q`)
-waits for the BFV slice (ROADMAP.md queue 1).
+is byte-equal.  So is BFV's kit: HPS's `scale_and_round_t_over_q` and
+BEHZ's `fast_base_conv_q_to_bsk`, `fast_rns_floor_q` and
+`fast_base_conv_sk`.
 """
 
 from __future__ import annotations
@@ -169,6 +169,14 @@ def to_coeff(p: RnsPoly) -> RnsPoly:
     return RnsPoly(ntt_inverse(p.plan, p.data), p.moduli, COEFF)
 
 
+def stack(polys) -> RnsPoly:
+    """Ring elements of one basis and format on a new leading axis [k, ...,
+    L, N]: one NTT launch then transforms them all."""
+    for p in polys[1:]:
+        _same_ring(polys[0], p)
+    return RnsPoly(torch.stack([p.data for p in polys]), polys[0].moduli, polys[0].fmt)
+
+
 def _same_ring(a: RnsPoly, b: RnsPoly) -> None:
     if a.moduli != b.moduli or a.fmt != b.fmt:
         raise ValueError(f"ring mismatch: {a.moduli} {a.fmt} vs {b.moduli} {b.fmt}")
@@ -277,6 +285,103 @@ def switch_crt_basis_exact(p: RnsPoly, to_mods: tuple, centered: bool = False) -
     return RnsPoly(_i32(sub_mod(acc, v[..., None, :] * q_to % pq, pq)), tuple(to_mods), COEFF)
 
 
+def scale_and_round_t_over_q(p: RnsPoly, q_mods: tuple, r_mods: tuple, t: int) -> RnsPoly:
+    """round(t V / Q) mod R for V over the basis Q u R (BFV HPS
+    ScaleAndRound, dcrtpoly.h:279-301), COEFF: floor((t V + floor(Q/2)) /
+    Q) = (y - [y]_Q) / Q with y = t V + floor(Q/2), [y]_Q carried from the
+    Q limbs to R by the exact switch."""
+    if p.fmt != COEFF or p.moduli != tuple(q_mods) + tuple(r_mods):
+        raise ValueError("scale_and_round_t_over_q needs COEFFICIENT data over q_mods + r_mods")
+    Lq = len(q_mods)
+    Q = modulus_product(q_mods)
+    y = _i32(add_mod(mul_scalar(p, t).data,
+                     limb_constants(tuple(Q // 2 % m for m in p.moduli), p.data.device), p._q()))
+    z_r = switch_crt_basis_exact(RnsPoly(y[..., :Lq, :], tuple(q_mods), COEFF), tuple(r_mods))
+    diff = sub(RnsPoly(y[..., Lq:, :], tuple(r_mods), COEFF), z_r)
+    return mul_scalar(diff, [pow(Q % r, -1, r) for r in r_mods])
+
+
+# ---------------------------------------------------------------------------
+# BEHZ (eprint 2016/510) base-conversion kit
+# ---------------------------------------------------------------------------
+
+# mtilde, a power of two: fhe_tpu's mod-mtilde arithmetic wraps in uint32 and
+# masks (2^16 divides 2^32); here the int64 sums are exact and the mask alone
+# reduces them
+_MTILDE = 1 << 16
+
+
+@functools.lru_cache(maxsize=None)
+def _behz_conv_consts(q_mods: tuple, bsk_mods: tuple, device):
+    """FastBaseConvqToBskMontgomery's constants (dcrtpoly.h:305-312), plain
+    form, int64 on the device: mtilde (Q/q_i)^-1 mod q_i [L, 1]; Q/q_i mod
+    b_j [L, M, 1]; Q/q_i mod mtilde [L, 1]; -Q^-1 mod mtilde; Q mod b_j and
+    mtilde^-1 mod b_j [M, 1]."""
+    Q = modulus_product(q_mods)
+    mt = _MTILDE
+    dev_t = lambda rows: torch.tensor(rows, dtype=torch.int64, device=device)
+    return (limb_constants(tuple(mt * pow(Q // qi % qi, -1, qi) % qi for qi in q_mods), device),
+            dev_t([[Q // qi % bj for bj in bsk_mods] for qi in q_mods])[..., None],
+            limb_constants(tuple(Q // qi % mt for qi in q_mods), device),
+            mt - pow(Q % mt, -1, mt),
+            limb_constants(tuple(Q % bj for bj in bsk_mods), device),
+            limb_constants(tuple(pow(mt % bj, -1, bj) for bj in bsk_mods), device))
+
+
+def fast_base_conv_q_to_bsk(p: RnsPoly, bsk_mods: tuple) -> RnsPoly:
+    """BEHZ FastBaseConvqToBskMontgomery (dcrtpoly.h:305-312; eprint
+    2016/510 3.1): the approximate conversion of mtilde x from q to Bsk u
+    {mtilde}, then the small Montgomery reduction by mtilde, which removes
+    the conversion's alpha Q: the result is x (or x + Q) exactly in Bsk.
+    COEFFICIENT format."""
+    if p.fmt != COEFF:
+        raise ValueError("fast_base_conv_q_to_bsk needs COEFFICIENT format")
+    mqinv, qhat_bsk, qhat_mt, negqinv_mt, q_bsk, mtinv = _behz_conv_consts(
+        p.moduli, tuple(bsk_mods), p.data.device)
+    bq = limb_constants(tuple(bsk_mods), p.data.device)
+    mask = _MTILDE - 1
+    y = _i64(p.data) * mqinv % p._q()                               # [..., L, N]
+    acc = (y[..., :, None, :] * qhat_bsk % bq).sum(dim=-3) % bq     # [..., M, N]
+    r = ((y * qhat_mt).sum(dim=-2) & mask) * negqinv_mt & mask      # [..., N]
+    r = r[..., None, :]
+    out = add_mod(acc, r * q_bsk % bq, bq) * mtinv % bq
+    out = torch.where(r >= _MTILDE // 2, sub_mod(out, q_bsk, bq), out)
+    return RnsPoly(_i32(out), tuple(bsk_mods), COEFF)
+
+
+def fast_rns_floor_q(x_q: RnsPoly, x_bsk: RnsPoly) -> RnsPoly:
+    """BEHZ FastRNSFloorq (eprint 2016/510 3.2): from the residues of one
+    integer y in q and in Bsk, floor(y / Q) in Bsk (less a conversion error
+    alpha < L)."""
+    if x_q.fmt != COEFF or x_bsk.fmt != COEFF:
+        raise ValueError("fast_rns_floor_q needs COEFFICIENT format")
+    diff = sub(x_bsk, switch_crt_basis_approx(x_q, x_bsk.moduli))
+    Q = modulus_product(x_q.moduli)
+    return mul_scalar(diff, [pow(Q % b, -1, b) for b in x_bsk.moduli])
+
+
+def fast_base_conv_sk(p: RnsPoly, q_mods: tuple) -> RnsPoly:
+    """BEHZ FastBaseConvSK (Shenoy-Kumaresan): the exact conversion from Bsk
+    = B u {m_sk} (m_sk the LAST limb) back to q, the m_sk residue cancelling
+    the approximate conversion's alpha B."""
+    if p.fmt != COEFF:
+        raise ValueError("fast_base_conv_sk needs COEFFICIENT format")
+    B_mods, msk = p.moduli[:-1], p.moduli[-1]
+    x_B = RnsPoly(p.data[..., :-1, :], B_mods, COEFF)
+    z_q = switch_crt_basis_approx(x_B, tuple(q_mods))              # x + alpha B mod q
+    z_msk = switch_crt_basis_approx(x_B, (msk,)).data[..., 0, :]
+    B = modulus_product(B_mods)
+    # alpha = (z_msk - x_msk) B^-1 mod m_sk, centered at m_sk / 2
+    alpha = sub_mod(z_msk, p.data[..., -1, :], msk) * pow(B % msk, -1, msk) % msk
+    alpha = alpha[..., None, :]
+    dev = p.data.device
+    qq = limb_constants(tuple(q_mods), dev)
+    out = sub_mod(z_q.data, alpha * limb_constants(tuple(B % q for q in q_mods), dev) % qq, qq)
+    out = torch.where(alpha >= msk // 2,
+                      add_mod(out, limb_constants(tuple(msk * B % q for q in q_mods), dev), qq), out)
+    return RnsPoly(_i32(out), tuple(q_mods), COEFF)
+
+
 def expand_crt_basis_approx(p: RnsPoly, ext_mods: tuple) -> RnsPoly:
     """ApproxModUp Q -> QP (dcrtpoly-impl.h:988): keep the Q limbs, append
     the switched P limbs."""
@@ -284,16 +389,22 @@ def expand_crt_basis_approx(p: RnsPoly, ext_mods: tuple) -> RnsPoly:
     return RnsPoly(torch.cat([p.data, ext.data], dim=-2), p.moduli + tuple(ext_mods), p.fmt)
 
 
-def approx_mod_down(p: RnsPoly, q_mods: tuple, p_mods: tuple) -> RnsPoly:
+def approx_mod_down(p: RnsPoly, q_mods: tuple, p_mods: tuple, t: int | None = None) -> RnsPoly:
     """ApproxModDown QP -> Q: (x - w) P^-1 mod Q with w = x mod P switched
-    to Q (up to its + u P slack).  p: COEFF over q_mods + p_mods.  BGV's
-    t-multiple rounding (fhe_tpu's `t=`) waits for the BGV slice."""
+    to Q (up to its + u P slack).  p: COEFF over q_mods + p_mods.  For BGV
+    (t given) w is lifted to a multiple of t, w = t [x_P t^-1 mod P], so
+    the rounding error stays divisible by the plaintext modulus (the
+    reference's tInvModq path)."""
     if p.fmt != COEFF or p.moduli != tuple(q_mods) + tuple(p_mods):
         raise ValueError("approx_mod_down needs COEFFICIENT data over q_mods + p_mods")
     Lq = len(q_mods)
     x_q = RnsPoly(p.data[..., :Lq, :], tuple(q_mods), COEFF)
-    sw = switch_crt_basis_approx(RnsPoly(p.data[..., Lq:, :], tuple(p_mods), COEFF),
-                                 tuple(q_mods))
+    x_p = RnsPoly(p.data[..., Lq:, :], tuple(p_mods), COEFF)
+    if t is not None:
+        x_p = mul_scalar(x_p, [pow(t % m, -1, m) for m in p_mods])
+    sw = switch_crt_basis_approx(x_p, tuple(q_mods))
+    if t is not None:
+        sw = mul_scalar(sw, t)
     P = modulus_product(p_mods)
     return mul_scalar(sub(x_q, sw), [pow(P % q, -1, q) for q in q_mods])
 

@@ -12,8 +12,8 @@ kernels 1-2 on a CUDA device (`lattice.rns`).  Encode and decode run on
 the host in float64, copied from fhe_tpu (as the reference's
 double-precision DFT).  The context defaults to the card
 (`CkksContext.create(..., device="cuda")`); pass device="cpu" for the
-plain versions.  HYBRID keys only: BV keys (fhe_tpu's `method="bv"`)
-wait, as in `rlwe`.
+plain versions.  Relinearization and rotation keys are HYBRID, or BV with
+`method="bv"` (`rlwe.bv_evk_gen`).
 """
 
 from __future__ import annotations
@@ -207,18 +207,21 @@ class CkksContext:
         pk = rlwe.pubkey_gen(self.params, sk, rng)
         return sk, pk
 
-    def relin_key_gen(self, sk: rlwe.SecretKey, rng) -> rlwe.EvalKey:
-        """The s^2 -> s switching key (HYBRID)."""
+    def relin_key_gen(self, sk: rlwe.SecretKey, rng, method: str = "hybrid",
+                      digit_bits: int = 0):
+        """The s^2 -> s switching key: HYBRID (keyswitch-hybrid.cpp) or, with
+        method="bv", BV (keyswitch-bv.cpp, relinWindow = digit_bits)."""
         s = sk.eval_poly(tuple(self.params.moduli))
-        return rlwe.evk_gen(self.params, rns.mul(s, s), sk, rng)
+        return rlwe.switch_key_gen(self.params, rns.mul(s, s), sk, rng, method, digit_bits)
 
-    def rotation_key_gen(self, sk: rlwe.SecretKey, rots, rng) -> dict[int, rlwe.EvalKey]:
+    def rotation_key_gen(self, sk: rlwe.SecretKey, rots, rng, method: str = "hybrid",
+                         digit_bits: int = 0) -> dict:
         """Keys for slot rotations (EvalRotateKeyGen): index r -> galois
-        element 5^r mod 2N (HYBRID)."""
+        element 5^r mod 2N; HYBRID or BV, as relin_key_gen."""
         N = self.params.N
         s = sk.eval_poly(tuple(self.params.moduli))
-        return {r: rlwe.evk_gen(self.params, rns.automorphism(s, pow(5, r % (2 * N), 2 * N)),
-                                sk, rng) for r in rots}
+        return {r: rlwe.switch_key_gen(self.params, rns.automorphism(s, pow(5, r % (2 * N), 2 * N)),
+                                       sk, rng, method, digit_bits) for r in rots}
 
     def conj_key_gen(self, sk: rlwe.SecretKey, rng) -> rlwe.EvalKey:
         s_k = rns.automorphism(sk.eval_poly(tuple(self.params.moduli)), 2 * self.params.N - 1)

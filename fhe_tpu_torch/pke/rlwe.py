@@ -8,13 +8,17 @@ split and ApproxModUp; EvalFastKeySwitchCore, inner products over QP then
 ApproxModDown) and base-pke's encryption (c0 = b u + e0 + m, c1 = a u + e1
 for a public key (b, a), b = -a s + e).
 
+BV key switching (keyswitch-bv.cpp:48-336: `bv_evk_gen`, `bv_decompose`,
+`bv_key_switch`) takes a `BvEvalKey`; `key_switch` dispatches on the key's
+type.  For BGV (params.scheme) the ModDown lifts the dropped limbs' part to
+a multiple of t, and `noise_scale = t` scales every noise draw.
+
 The host draws keep fhe_tpu's `np.random.Generator` order, so a seed gives
 byte-identical keys and ciphertexts.  Ring data lives on the device of the
 keys (`keygen(..., device=)`); the NTTs are kernels 1-2 on a CUDA device
 (`lattice.rns`), the basis switches and the digit inner products PyTorch
-int64 ops, as fhe_tpu leaves them to XLA.  BV key switching (`bv_*`) waits
-(ROADMAP.md queue 1), as does the multiparty `a_common` of `evk_gen` and
-BGV's plaintext-modulus lift in the ModDown.
+int64 ops, as fhe_tpu leaves them to XLA.  The multiparty `a_common` of
+`evk_gen` waits (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -70,6 +74,20 @@ class PreparedEvalKey:
     a: torch.Tensor
     moduli_qp: tuple
     num_per_part: int
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BvEvalKey:
+    """BV (digit decomposition) switching key (keyswitch-bv.cpp:48-137):
+    one (b, a) RLWE pair over the full chain per row, b and a int32
+    [n_rows, L, N] EVAL; row (i, k) encrypts B^k s_old_i on limb i only
+    (B = 2^digit_bits; digit_bits = 0: one row a limb, the limb whole).
+    rows_per_limb: the rows of each limb."""
+    b: torch.Tensor
+    a: torch.Tensor
+    moduli: tuple
+    digit_bits: int
+    rows_per_limb: tuple
 
 
 def sample_ternary(rng: np.random.Generator, N: int, h: int | None = None) -> np.ndarray:
@@ -162,10 +180,9 @@ def _p_mod_q(p_mods: tuple, q_mods: tuple) -> list[int]:
     return [P % q for q in q_mods]
 
 
-def _no_bgv(params) -> None:
-    if params.scheme == "BGV":
-        raise NotImplementedError("BGV's plaintext-modulus lift in the ModDown waits for "
-                                  "pke/bgv.py's port (ROADMAP.md queue 1)")
+def _plain_mod(params) -> int | None:
+    """t where the ModDown lifts to multiples of it (BGV), else None."""
+    return params.plain_mod if params.scheme == "BGV" else None
 
 
 def evk_gen(params, s_old: RnsPoly, sk_new: SecretKey, rng: np.random.Generator,
@@ -261,10 +278,9 @@ def key_switch_down_poly(params, c: RnsPoly) -> RnsPoly:
     """KeySwitchDown for one component: ModDown by P."""
     if c.fmt == EVAL:
         return mod_down_eval(params, c)
-    _no_bgv(params)
     p_mods = tuple(params.special_mods)
     q_mods = c.moduli[:len(c.moduli) - len(p_mods)]
-    return rns.to_eval(rns.approx_mod_down(c, q_mods, p_mods))
+    return rns.to_eval(rns.approx_mod_down(c, q_mods, p_mods, _plain_mod(params)))
 
 
 def key_switch_ext_poly(params, c: RnsPoly) -> RnsPoly:
@@ -285,7 +301,10 @@ def key_switch_apply(params, evk, ups: RnsPoly) -> tuple[RnsPoly, RnsPoly]:
 
 def key_switch(params, evk, c: RnsPoly) -> tuple[RnsPoly, RnsPoly]:
     """Key switch of c over Q_l: (d0, d1) over c's basis with d0 + d1 s_new
-    = c s_old + noise (HYBRID; fhe_tpu's BV keys are not ported)."""
+    = c s_old + noise, by the key's type: BV (`bv_key_switch`) or HYBRID
+    (`key_switch_core`)."""
+    if isinstance(evk, BvEvalKey):
+        return bv_key_switch(params, evk, c)
     return key_switch_fused(params, evk, c)
 
 
@@ -296,8 +315,9 @@ def mod_down_eval(params, t: RnsPoly, drop_q: int = 0) -> RnsPoly:
     inverse-transformed; their switch to the kept limbs is transformed
     back and subtracted in EVAL.  With drop_q > 0 the switch is the exact
     one (floor-exact joint drop, as DropLastElementAndScale), else the
-    approximate one (ApproxModDown's slack)."""
-    _no_bgv(params)
+    approximate one (ApproxModDown's slack).  For BGV the dropped limbs'
+    part is lifted to a multiple of t (times t^-1 before the inverse NTT,
+    its switch times t), as the reference's tInvModq path."""
     ext_mods = t.moduli
     p_mods = tuple(params.special_mods)
     keep = len(ext_mods) - len(p_mods) - drop_q
@@ -306,11 +326,15 @@ def mod_down_eval(params, t: RnsPoly, drop_q: int = 0) -> RnsPoly:
                          f"q-limbs, got {ext_mods}")
     keep_mods, d_mods = ext_mods[:keep], ext_mods[keep:]
     dev = t.data.device
-    x_d = RnsPoly(rns.ntt_inverse(rns.make_rns_plan(t.N, d_mods, dev),
-                                  t.data[..., keep:, :]), d_mods, COEFF)
+    tmod = _plain_mod(params)
+    x_d = RnsPoly(t.data[..., keep:, :], d_mods, EVAL)
+    if tmod is not None:
+        x_d = rns.mul_scalar(x_d, [pow(tmod % m, -1, m) for m in d_mods])
     switch = rns.switch_crt_basis_exact if drop_q > 0 else rns.switch_crt_basis_approx
-    sw = switch(x_d, keep_mods)
+    sw = switch(rns.to_coeff(x_d), keep_mods)
     sw_eval = rns.ntt_forward(rns.make_rns_plan(t.N, keep_mods, dev), sw.data)
+    if tmod is not None:
+        sw_eval = rns.mul_scalar(RnsPoly(sw_eval, keep_mods, EVAL), tmod).data
     D = rns.modulus_product(d_mods)
     qk = rns.limb_constants(tuple(keep_mods), dev)
     dinv = rns.limb_constants(tuple(pow(D % q, -1, q) for q in keep_mods), dev)
@@ -356,3 +380,85 @@ def key_switch_core(params, evk, c: RnsPoly, extra: tuple | None = None,
 def key_switch_fused(params, evk, c: RnsPoly) -> tuple[RnsPoly, RnsPoly]:
     """KeySwitchCore with no extras and no rescale (key_switch_core)."""
     return key_switch_core(params, evk, c)
+
+
+# ---------------------------------------------------------------------------
+# BV key switching (digit decomposition; keyswitch-bv.cpp:48-336)
+# ---------------------------------------------------------------------------
+
+def _bv_windows(moduli: tuple, digit_bits: int) -> tuple:
+    """Rows of each limb: ceil(bits(q_i) / w), or 1 where digit_bits = 0."""
+    if digit_bits == 0:
+        return tuple(1 for _ in moduli)
+    return tuple(-(-q.bit_length() // digit_bits) for q in moduli)
+
+
+def bv_evk_gen(params, s_old: RnsPoly, sk_new: SecretKey, rng: np.random.Generator,
+               digit_bits: int = 0, noise_scale: int = 1) -> BvEvalKey:
+    """BV switching key s_old -> sk_new (KeySwitchGenInternal,
+    keyswitch-bv.cpp:50-123): row (i, k) is b = B^k s_old_i on limb i (zero
+    on the others) - a s_new + ns e.  Each row draws a, then e, as fhe_tpu
+    does."""
+    q_mods = tuple(params.moduli)
+    dev = sk_new.s_eval_full.device
+    s_new = sk_new.eval_poly(q_mods)
+    wins = _bv_windows(q_mods, digit_bits)
+    bs, as_ = [], []
+    for i, qi in enumerate(q_mods):
+        for k in range(wins[i]):
+            a = uniform_poly(rng, q_mods, params.N, device=dev)
+            e = _gauss_eval(params, rng, q_mods, dev, noise_scale)
+            b = rns.add(rns.neg(rns.mul(a, s_new)), e)
+            pw = pow(2, digit_bits * k, qi)
+            filt = torch.zeros_like(b.data)
+            filt[i] = (s_old.data[i].to(torch.int64) * pw % qi).to(torch.int32)
+            bs.append(rns.add(b, RnsPoly(filt, q_mods, EVAL)).data)
+            as_.append(a.data)
+    return BvEvalKey(b=torch.stack(bs), a=torch.stack(as_), moduli=q_mods,
+                     digit_bits=digit_bits, rows_per_limb=wins)
+
+
+def switch_key_gen(params, s_old: RnsPoly, sk_new: SecretKey, rng: np.random.Generator,
+                   method: str = "hybrid", digit_bits: int = 0, noise_scale: int = 1):
+    """The s_old -> sk_new key of a scheme's relin_key_gen / rotation_key_gen:
+    HYBRID (`evk_gen`) or, with method="bv", BV (`bv_evk_gen`)."""
+    if method == "bv":
+        return bv_evk_gen(params, s_old, sk_new, rng, digit_bits, noise_scale)
+    if method != "hybrid":
+        raise ValueError(f"key switching method must be 'hybrid' or 'bv', got {method!r}")
+    return evk_gen(params, s_old, sk_new, rng, noise_scale)
+
+
+def bv_decompose(params, evk: BvEvalKey, c: RnsPoly) -> RnsPoly:
+    """CRTDecompose (EvalKeySwitchPrecomputeCore, keyswitch-bv.cpp:304): each
+    limb of c (or each base-2^w digit of it) re-embedded over c's basis, all
+    digits forward-transformed in one launch.  Returns them as one RnsPoly
+    [..., n_digits, L, N] over c's basis in EVAL, limb by limb, digit by
+    digit (fhe_tpu's list, stacked)."""
+    q_mods = c.moduli
+    x = rns.to_coeff(c).data.to(torch.int64)
+    w = evk.digit_bits
+    digits = []
+    for i in range(len(q_mods)):
+        for k in range(evk.rows_per_limb[i]):
+            d = x[..., i, :] if w == 0 else x[..., i, :] >> (w * k) & ((1 << w) - 1)
+            digits.append(d)
+    emb = torch.stack(digits, dim=-2)[..., None, :] % c._q()       # [..., D, L, N]
+    plan = rns.make_rns_plan(c.N, q_mods, c.data.device)
+    return RnsPoly(rns.ntt_forward(plan, emb.to(torch.int32)), q_mods, EVAL)
+
+
+def bv_key_switch(params, evk: BvEvalKey, c: RnsPoly) -> tuple[RnsPoly, RnsPoly]:
+    """BV KeySwitchCore (keyswitch-bv.cpp:298-336): the digits' products with
+    the key's rows, summed; the key truncated to c's basis, a prefix of the
+    chain (DropLastElements)."""
+    q_mods = c.moduli
+    L = len(q_mods)
+    if evk.moduli[:L] != q_mods:
+        raise ValueError(f"BV key switch needs a prefix of the key's chain {evk.moduli}, "
+                         f"got {q_mods}")
+    rows = sum(evk.rows_per_limb[:L])
+    digits = bv_decompose(params, evk, c)
+    d0, d1 = _inner_products(digits.data, evk.b[:rows, :L].to(torch.int64),
+                             evk.a[:rows, :L].to(torch.int64), c._q())
+    return RnsPoly(d0.to(torch.int32), q_mods, EVAL), RnsPoly(d1.to(torch.int32), q_mods, EVAL)

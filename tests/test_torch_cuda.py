@@ -64,7 +64,7 @@ def test_ntt_kernels_match_plain(N, q_bits, cuda, gen):
         _same(i, x)
 
 
-@pytest.mark.parametrize("N", [1 << 15])
+@pytest.mark.parametrize("N", [1 << 16])
 def test_ntt_kernels_reject_unlisted_n(N, cuda):
     """An N outside csrc/ntt_shapes.h: ValueError before any launch."""
     plan = ntt.make_plan(N, primes.last_prime(27, 2 * N), cuda)
@@ -358,6 +358,54 @@ def test_limb_stacked_ntt_kernels_at_ckks_width(L, cuda, gen):
         i = rns.ntt_inverse(plan, f)
         _same(i, rns.inverse_plain(plan, f))
         _same(i, x)
+
+
+@pytest.mark.parametrize("L", [1, 3, 8, 16])
+def test_limb_stacked_ntt_kernels_at_bfv_width(L, cuda, gen):
+    """N = 2^15 (BFV bench config 4) with 1, 3 (its Q), 8 (its Q u R) and
+    16 limbs, 1, 3 and SMs + 1 rows (one row a block): byte-equal to the
+    per-limb loop, and the round trip."""
+    N = 1 << 15
+    moduli = primes.ntt_primes(L, N, 1 << 30)
+    plan = rns.make_rns_plan(N, moduli, cuda)
+    for rows in (1, 3, kntt.rows_per_block(N) * _sm_count(cuda) + 1):
+        x = torch.stack([_residues(gen, q, (rows, N), cuda) for q in moduli], dim=1)
+        f = rns.ntt_forward(plan, x)
+        _same(f, rns.forward_plain(plan, x))
+        i = rns.ntt_inverse(plan, f)
+        _same(i, rns.inverse_plain(plan, f))
+        _same(i, x)
+
+
+def test_bfv_bgv_on_card_match_cpu(cuda):
+    """BFV (HPS and BEHZ products, relinearized) and BGV (product, two
+    mod_reduce, a rotation) at N = 2^15, keyed on the CPU and on the card
+    from one seed: the same ciphertexts, and the NTT kernels launched for
+    the card's only."""
+    from fhe_tpu_torch.pke import bfv, bgv
+    m = np.random.default_rng(5).integers(0, 100, size=1 << 15)
+    outs = []
+    for dev in ("cpu", cuda):
+        ctx = bfv.BfvContext.create(N=1 << 15, num_limbs=3, dnum=3, device=dev)
+        rng = np.random.default_rng(6)
+        sk, pk = ctx.keygen(rng)
+        evk = ctx.relin_key_gen(sk, rng)
+        ct = ctx.encrypt(pk, m, rng)
+        before = launch_counts()
+        prods = [ctx.mul(ct, ct, evk, technique=t) for t in ("hps", "behz")]
+        after = launch_counts()
+        assert (after["ntt_forward_limbs"] > before["ntt_forward_limbs"]) == (dev != "cpu")
+        for p in prods:
+            np.testing.assert_array_equal(ctx.decrypt(sk, p), m * m % ctx.t)
+        g = bgv.BgvContext.create(N=1 << 15, num_levels=3, dnum=3, device=dev)
+        sk, pk = g.keygen(rng)
+        gct = g.encrypt(pk, m, rng)
+        red = g.mod_reduce(g.mod_reduce(g.mul(gct, gct, g.relin_key_gen(sk, rng))))
+        rot = g.rotate(gct, 1, g.rotation_key_gen(sk, [1], rng))
+        np.testing.assert_array_equal(g.decrypt(sk, red), m * m % g.t)
+        outs.append([c.to("cpu") for p in prods + [red, rot] for c in (p.c0.data, p.c1.data)])
+    for got, want in zip(outs[1], outs[0]):
+        _same(got, want)
 
 
 def test_limb_stacked_ntt_kernels_reject_too_many_limbs(cuda):
