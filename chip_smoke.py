@@ -134,7 +134,41 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    rotate by 1 and mul_plain after a mod_reduce, each exact against numpy
    and byte-equal to the CPU port from the same seed; mul + relinearize
    timed and split as [bfv]'s;
-12. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+12. [mp], multiparty threshold CKKS/BGV (pke/multiparty.py) at bench.py's
+   config 5 (N = 2^12, Q 4 limbs, P 2, dnum = 2, scale 2^29, 5 parties;
+   its seeds): multiparty_keygen and the encryption of z, decrypted by the
+   protocol form (decrypt_lead, 4 decrypt_main, fuse) and by
+   threshold_decrypt_pipeline (launches counted), each within bench.py's
+   5 MP_SD sqrt(5N) / scale; the pipeline byte-equal to the fusion of the
+   shares on the same flood deviates, whose sample standard deviation must
+   be within 2 % of 2^20; a joint relinearization key and a joint rotation
+   key from all 5 parties, mul + relinearize + rescale and rotate under
+   them decrypted by the pipeline (within the flood's bound) and at flood
+   0 (within [ckks]'s z^2 and rotate bounds); IntBoot and IntMPBoot (2
+   parties, N = 2^12, 7 limbs, scale 2^26) within fhe_tpu's test bound x
+   N/256; a BGV 5-party threshold decrypt on the [bgv] ring, exact; the
+   shares and the fusion at flood 0 byte-equal to the CPU port's from the
+   same seed; the pipeline timed at batch 1 and split by a torch.profiler
+   trace, beside the C++ reference's ~50 ms on an EPYC 7763 core
+   (BASELINE.md:14, not a target); kernels 1-2 at every shape the phase
+   launched them at byte-equal to their plain versions, beside their
+   bound;
+13. [adv], advanced SHE (pke/advanced.py, math/approx.py) at bench config
+   3: eval_sum over all 8192 slots (13 rotations) and eval_logistic on
+   [-5, 5] at degree 16 (launches counted; byte-equal to the CPU port's
+   from the same seed), eval_inner_product, eval_linear_wsum of 4,
+   eval_merge of 4, eval_linear_transform with a banded 8192 x 8192 matrix
+   (diagonals 0, +1, -1: 2 rotation keys) and compress to one tower, each
+   decrypted within fhe_tpu's test bound x N/256; eval_logistic and
+   eval_inner_product timed (CUDA events, median of 5) and split by a
+   trace; kernels 1-2 at every shape byte-equal and beside their bound;
+14. [pre], proxy re-encryption (pke/pre.py): CKKS at bench config 3, a
+   HYBRID key, re_encrypt re-randomized under Bob's public key (launches
+   counted), Bob's decryption within fhe_tpu's 1e-2 x N/256, Alice's key
+   no longer decrypting, byte-equal to the CPU port's; BGV on the [bgv]
+   ring with a HYBRID and a BV (14-bit digits) key, exact; re_encrypt
+   timed and split; kernels 1-2 at every shape byte-equal;
+15. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
    the NTT kernels, and their plain versions, with a cold L2 (each call
@@ -238,6 +272,19 @@ CKKS_BATCH = 32
 BFV_CONFIG = dict(N=1 << 15, num_limbs=3, plain_mod=65537, mod_bits=28, dnum=3)
 BFV_REFERENCE_CPU_MS = 3.021
 BGV_CONFIG = dict(N=1 << 15, num_levels=3, plain_mod=65537, mod_bits=28, dnum=3)
+# the [mp] phase: bench.py's config 5 (N = 2^12, Q 4 limbs, P 2, dnum = 2,
+# scale 2^29, 5 parties; bench.py:312-345), the C++ reference's 3-of-5
+# combine on an EPYC 7763 core (BASELINE.md:14), printed beside the
+# pipeline, not a target; the interactive bootstraps' ring
+# (tests/test_multiparty.py:139,160 at N = 2^12)
+MP_CONFIG = dict(N=1 << 12, num_levels=3, scale_bits=29, dnum=2)
+MP_PARTIES = 5
+MP_REFERENCE_CPU_MS = 50.0
+MP_BOOT_CONFIG = dict(N=1 << 12, num_levels=6, scale_bits=26, dnum=2)
+# the [adv] phase (bench config 3, CKKS_CONFIG): EvalLogistic's interval
+# and degree (tests/test_advanced_ext.py:84), the degree lowered only if
+# it needs more levels than the chain has
+ADV_LOGISTIC = (-5.0, 5.0, 16)
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
@@ -1663,19 +1710,20 @@ def limb_launch_shapes():
         kntt.inverse_limbs = originals["ntt_inverse_limbs"]
 
 
-def ckks_values_close(what: str, got: np.ndarray, want: np.ndarray, tol: float) -> None:
+def ckks_values_close(what: str, got: np.ndarray, want: np.ndarray, tol: float,
+                      tag: str = "[ckks]") -> None:
     err = float(np.abs(got - want).max())
-    print(f"[ckks] {what}: max |decrypted - expected| = {err:.3e} (tolerance {tol:g})")
+    print(f"{tag} {what}: max |decrypted - expected| = {err:.3e} (tolerance {tol:.4g})")
     if not err < tol:
-        fail(f"[ckks] {what}: error {err} is not below {tol}")
+        fail(f"{tag} {what}: error {err} is not below {tol}")
 
 
-def ckks_same(what: str, a, b) -> None:
+def ckks_same(what: str, a, b, tag: str = "[ckks]") -> None:
     if a.moduli != b.moduli or a.scale != b.scale or not (
             torch.equal(a.c0.data.cpu(), b.c0.data.cpu()) and
             torch.equal(a.c1.data.cpu(), b.c1.data.cpu())):
-        fail(f"[ckks] {what}: the ciphertexts differ")
-    print(f"[ckks] {what}: byte-equal ({len(a.moduli)} limbs, scale {a.scale!r})")
+        fail(f"{tag} {what}: the ciphertexts differ")
+    print(f"{tag} {what}: byte-equal ({len(a.moduli)} limbs, scale {a.scale!r})")
 
 
 def ckks_keys(ctx, seed: int):
@@ -1712,8 +1760,9 @@ def limb_kernels_at(tag: str, call: str, dev, shapes: collections.Counter, dev_m
                     errors: Errors, int_peak: float, card: str) -> None:
     """Kernels 1-2 at every (kernel, shape, basis) a call launched:
     byte-equal to their plain versions on random residues; their device
-    time a launch in the call (dev_ms, from its trace) and 10 launches back
-    to back on these residues (with the host's issue), beside their
+    time a launch in the call (dev_ms, from its trace; where the call was
+    not traced, from a trace of the 10 launches below) and 10 launches
+    back to back on these residues (with the host's issue), beside their
     bound."""
     from fhe_tpu_torch.lattice import rns
     gen = np.random.default_rng(SEED + 6)
@@ -1731,9 +1780,13 @@ def limb_kernels_at(tag: str, call: str, dev, shapes: collections.Counter, dev_m
         butterflies = N // 2 * (N.bit_length() - 1)
         muls = 3 * (butterflies + (N if "inverse" in kernel else 0)) * rows * L
         b_ms, b_by = bound(_nbytes(x, x, plan.fwd_w, plan.fwd_ws), muls, int_peak)
-        d_ms = dev_ms.get((kernel, shape, moduli))
-        d_txt = (f"{d_ms:.4f} ms a launch on the device (trace), at {b_ms / d_ms:.3f} of the "
-                 f"bound" if d_ms else "device time not measured (no trace)")
+        d_ms, where = dev_ms.get((kernel, shape, moduli)), "the call's trace"
+        if d_ms is None:
+            stem = kernel[len("ntt_"):] + "_kernel"
+            us = [k["us"] for k in kernel_trace(lambda: fn(plan, x), 10) if stem in k["name"]]
+            d_ms, where = (statistics.median(us) / 1e3 if us else None), "a trace of 10 launches"
+        d_txt = (f"{d_ms:.4f} ms a launch on the device ({where}), at {b_ms / d_ms:.3f} of the "
+                 f"bound" if d_ms else "device time not measured (no kernel in the trace)")
         print(f"{tag} {kernel} {list(shape)}: {d_txt}; {ms:.4f} ms a launch 10 back to back "
               f"(with the host's issue); plain {p_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}; "
               f"byte-equal to the plain version; {n} launches a {call}  ({card})")
@@ -2113,6 +2166,433 @@ def bgv_phase(dev, errors: Errors, card: str) -> dict:
     return {name: launches[name] for name in LIMB_KERNELS}
 
 
+def decode_phase(ctx, ph, scale: float) -> np.ndarray:
+    """The real slots of a fused COEFF phase (a threshold decryption)."""
+    from fhe_tpu_torch.lattice import rns
+    from fhe_tpu_torch.pke import ckks
+    m = ckks._center(rns.to_bigint(ph), rns.modulus_product(ph.moduli))
+    return ckks.decode(m, ctx.params.N, scale).real
+
+
+def protocol_decrypt(params, sks, ct, rng):
+    """decrypt_lead, a decrypt_main a party, fuse: the fused COEFF phase."""
+    from fhe_tpu_torch.pke import multiparty
+    lead = multiparty.decrypt_lead(params, sks[0], ct.c0, ct.c1, rng)
+    return multiparty.fuse([lead] + [multiparty.decrypt_main(params, sk, ct.c1, rng)
+                                     for sk in sks[1:]])
+
+
+def flood_bound(N: int, parties: int, scale: float) -> float:
+    """bench.py:344-345: 5 sigma_slot, sigma_slot = MP_SD sqrt(parties N) / scale."""
+    from fhe_tpu_torch.pke import multiparty
+    return 5 * multiparty.MP_SD * math.sqrt(parties * N) / scale
+
+
+def exact_decrypt(params, sks, ct):
+    """The threshold decryption with every flood at 0: the fusion of the
+    shares s_i c1 (+ c0), which is the decryption under the joint secret."""
+    from fhe_tpu_torch.lattice import rns
+    from fhe_tpu_torch.pke import multiparty
+    mods = tuple(ct.moduli)
+    s_stack = torch.stack([sk.eval_poly(mods).data for sk in sks])
+    zero = torch.zeros(len(sks), params.N, dtype=torch.int64, device=ct.c0.data.device)
+    return rns.RnsPoly(multiparty._pipeline(mods, 1, s_stack, ct.c0.data, ct.c1.data, zero), mods,
+                       rns.COEFF)
+
+
+def mp_keys(ctx, seed: int):
+    """bench.py:328-331: the 5-party joint keys and the encryption of z
+    (normal over the N/2 slots) from seed."""
+    from fhe_tpu_torch.pke import multiparty
+    rng = np.random.default_rng(seed)
+    sks, pk = multiparty.multiparty_keygen(ctx.params, MP_PARTIES, rng, device=ctx.device)
+    z = rng.normal(size=ctx.params.N // 2)
+    return rng, sks, pk, z, ctx.encrypt(pk, z, rng)
+
+
+def zero_flood_shares(ctx, sks, ct) -> list:
+    """Each party's share with the flood at 0, and the pipeline's fusion at
+    flood 0: the ring data the card and the CPU must agree on."""
+    from fhe_tpu_torch.pke import multiparty
+    mods = tuple(ct.moduli)
+    zero = torch.zeros(ctx.params.N, dtype=torch.int64, device=ct.c0.data.device)
+    out = [multiparty._share(mods, 1, i == 0, sk.eval_poly(mods).data, ct.c1.data, ct.c0.data,
+                             zero) for i, sk in enumerate(sks)]
+    return out + [exact_decrypt(ctx.params, sks, ct).data]
+
+
+def joint_relin_key(params, sks, rng):
+    """threshold-fhe.cpp's rounds for every party: MultiKeySwitchGen over the
+    first party's a, MultiAddEvalKeys, MultiMultEvalKey, MultiAddEvalMultKeys."""
+    from fhe_tpu_torch.pke import multiparty, rlwe
+    mods = tuple(params.moduli)
+    first = rlwe.evk_gen(params, sks[0].eval_poly(mods), sks[0], rng)
+    joint = first
+    for sk in sks[1:]:
+        joint = multiparty.multi_add_eval_keys(joint, multiparty.multi_key_switch_gen(
+            params, sk.eval_poly(mods), sk, first, rng))
+    rlk = None
+    for sk in sks:
+        share = multiparty.multi_mult_eval_key(params, joint, sk, rng)
+        rlk = share if rlk is None else multiparty.multi_add_eval_mult_keys(rlk, share)
+    return rlk
+
+
+def joint_rotation_key(params, sks, r: int, rng) -> dict:
+    """MultiEvalAtIndexKeyGen over the first party's key, summed over the
+    parties (MultiAddEvalAutomorphismKeys)."""
+    from fhe_tpu_torch.lattice import rns
+    from fhe_tpu_torch.pke import multiparty, rlwe
+    mods = tuple(params.moduli)
+    k = pow(5, r % (2 * params.N), 2 * params.N)
+    first = {r: rlwe.evk_gen(params, rns.automorphism(sks[0].eval_poly(mods), k), sks[0], rng)}
+    joint = first
+    for sk in sks[1:]:
+        joint = multiparty.multi_add_eval_automorphism_keys(
+            joint, multiparty.multi_eval_automorphism_key_gen(params, sk, first, {r: k}, rng))
+    return joint
+
+
+def mp_joint(tag: str, ctx, sks, pk, rng) -> None:
+    """A joint relinearization key and a joint rotation key from all
+    parties; mul + relinearize + rescale and rotate by 1 under them,
+    decrypted by the threshold pipeline (within the flood's 5 sigma_slot)
+    and at flood 0 (the joint secret's decryption: within [ckks]'s z^2 and
+    rotate bounds; the 2^20 flood alone is ~0.28 a slot here)."""
+    from fhe_tpu_torch.pke import multiparty
+    p = ctx.params
+    t0 = time.perf_counter()
+    rlk = joint_relin_key(p, sks, rng)
+    rot = joint_rotation_key(p, sks, 1, rng)
+    print(f"{tag} joint relinearization key ({len(sks)} parties: MultiKeySwitchGen, "
+          f"MultiAddEvalKeys, MultiMultEvalKey, MultiAddEvalMultKeys) and joint rotation key "
+          f"(index 1): {time.perf_counter() - t0:.3f} s (host clock, with the host draws)")
+    z1, z2 = rng.normal(size=p.N // 2) * 0.5, rng.normal(size=p.N // 2) * 0.5
+    ct1, ct2 = ctx.encrypt(pk, z1, rng), ctx.encrypt(pk, z2, rng)
+    grow = p.N / 256
+    for what, out, want, tol in (
+            ("mul + relinearize + rescale under the joint key", ctx.rescale(ctx.mul(ct1, ct2, rlk)),
+             z1 * z2, 1e-2),
+            ("rotate by 1 under the joint key", ctx.rotate(ct1, 1, rot), np.roll(z1, -1),
+             1e-3 * grow)):
+        ph = multiparty.threshold_decrypt_pipeline(p, sks, out.c0, out.c1, rng)
+        ckks_values_close(f"{what}, threshold_decrypt_pipeline", decode_phase(ctx, ph, out.scale),
+                          want, flood_bound(p.N, len(sks), out.scale), tag)
+        ckks_values_close(f"{what}, flood 0 (the joint secret)",
+                          decode_phase(ctx, exact_decrypt(p, sks, out), out.scale), want, tol, tag)
+
+
+def mp_boot(tag: str, dev) -> None:
+    """IntBoot (2 parties) and IntMPBoot at N = 2^12 with the levels of
+    tests/test_multiparty.py:139,160, decrypted by the 2-party threshold
+    decrypt within fhe_tpu's 1.2 x N/256 (the flood: 2^20 at scale 2^26),
+    and at flood 0 (the joint secret) within [ckks]'s fresh-ciphertext
+    bound, 1e-3 x N/256."""
+    from fhe_tpu_torch.pke import ckks, multiparty
+    ctx = ckks.CkksContext.create(**MP_BOOT_CONFIG, device=dev)
+    p = ctx.params
+    rng = np.random.default_rng(SEED + 20)
+    t0 = time.perf_counter()
+    sks, pk = multiparty.multiparty_keygen(p, 2, rng, device=dev)
+    z = rng.normal(size=p.N // 2) * 0.5
+    ct = ctx.encrypt(pk, z, rng)
+    low = multiparty.int_boot_adjust_scale(ctx, ct, extra_limbs=1)
+    h1 = multiparty.int_boot_decrypt(p, sks[0], low.c0, low.c1)
+    h2 = multiparty.int_boot_decrypt(p, sks[1], low.c1)
+    boot = multiparty.int_boot_add(p, multiparty.int_boot_encrypt(p, pk, h2, low, rng), h1)
+    low_mp = multiparty.int_boot_adjust_scale(ctx, ct)
+    a = multiparty.int_mp_boot_random_gen(p, rng, device=dev)
+    agg = multiparty.int_mp_boot_add([multiparty.int_mp_boot_decrypt(p, sk, low_mp, a, rng)
+                                      for sk in sks])
+    mp_boot_out = multiparty.int_mp_boot_encrypt(p, low_mp, agg, a)
+    torch.cuda.synchronize()
+    print(f"{tag} IntBoot and IntMPBoot at N = {p.N}, Q {len(p.moduli)} limbs, scale "
+          f"2^{p.scale_bits}: keys, {len(low.moduli)}- and {len(low_mp.moduli)}-limb compressions, "
+          f"shares and refreshes {time.perf_counter() - t0:.3f} s (host clock)")
+    for what, out in (("IntBoot (2 parties)", boot), ("IntMPBoot (2 parties)", mp_boot_out)):
+        if out.moduli != tuple(p.moduli):
+            fail(f"{tag} {what}: refreshed to {len(out.moduli)} limbs, not the full chain")
+        ph = protocol_decrypt(p, sks, out, rng)
+        ckks_values_close(f"{what}, threshold decrypt", decode_phase(ctx, ph, out.scale), z,
+                          1.2 * p.N / 256, tag)
+        ckks_values_close(f"{what}, flood 0 (the joint secret)",
+                          decode_phase(ctx, exact_decrypt(p, sks, out), out.scale), z,
+                          1e-3 * p.N / 256, tag)
+
+
+def mp_bgv(tag: str, dev) -> None:
+    """BGV 5-party threshold decrypt on the [bgv] ring
+    (tests/test_multiparty.py:56's flow at full width): 0 wrong slots,
+    through the protocol form and the pipeline."""
+    from fhe_tpu_torch.lattice import rns
+    from fhe_tpu_torch.pke import bgv, multiparty
+    ctx = bgv.BgvContext.create(**BGV_CONFIG, device=dev)
+    p, t = ctx.params, ctx.t
+    rng = np.random.default_rng(SEED + 21)
+    sks, pk = multiparty.multiparty_keygen(p, MP_PARTIES, rng, device=dev)
+    m = rng.integers(0, t, size=p.N)
+    ct = ctx.encrypt(pk, m, rng)
+    Q = rns.modulus_product(ct.moduli)
+    for what, ph in (("protocol form", protocol_decrypt(p, sks, ct, rng)),
+                     ("threshold_decrypt_pipeline",
+                      multiparty.threshold_decrypt_pipeline(p, sks, ct.c0, ct.c1, rng))):
+        got = bgv.decode(bgv.plain_coeffs(rns.to_bigint(ph), Q, t), t, p.N, device=dev)
+        pke_exact(tag, f"BGV {MP_PARTIES}-party threshold decrypt, {what}, N = {p.N}, "
+                  f"{len(ct.moduli)} limbs", got, m)
+
+
+def mp_phase(dev, errors: Errors, card: str) -> dict:
+    """The [mp] phase: bench config 5's threshold decrypt (N = 2^12, 5
+    parties) on the card; returns the launches of one counted
+    threshold_decrypt_pipeline."""
+    from fhe_tpu_torch.lattice import rns
+    from fhe_tpu_torch.pke import ckks, multiparty
+    t_phase = time.perf_counter()
+    tag = "[mp]"
+    with limb_launch_shapes() as phase_shapes:
+        ctx = ckks.CkksContext.create(**MP_CONFIG, device=dev)
+        p = ctx.params
+        print(f"{tag} bench config 5: N = {p.N}, Q = {p.moduli}, P = {p.special_mods}, dnum = "
+              f"{p.num_part_q}, scale 2^{p.scale_bits}, {MP_PARTIES} parties")
+        t0 = time.perf_counter()
+        rng, sks, pk, z, ct = mp_keys(ctx, 3)
+        torch.cuda.synchronize()
+        print(f"{tag} multiparty_keygen + encrypt on {dev}: {time.perf_counter() - t0:.3f} s "
+              f"(host clock, with the host draws)")
+        bound5 = flood_bound(p.N, MP_PARTIES, ct.scale)
+        ckks_values_close("protocol form (decrypt_lead, 4 decrypt_main, fuse)",
+                          decode_phase(ctx, protocol_decrypt(p, sks, ct, np.random.default_rng(4)),
+                                       ct.scale), z, bound5, tag)
+        pipe_rng = np.random.default_rng(5)                             # bench.py:339
+        pipe = lambda: multiparty.threshold_decrypt_pipeline(p, sks, ct.c0, ct.c1, pipe_rng)
+        pipe()                                                          # warm
+        ph, launches, shapes = counted(tag, "threshold_decrypt_pipeline", pipe)
+        ckks_values_close("threshold_decrypt_pipeline", decode_phase(ctx, ph, ct.scale), z, bound5,
+                          tag)
+
+        # the same deviates through the pipeline and through each share
+        mods = tuple(ct.moduli)
+        s_stack = torch.stack([sk.eval_poly(mods).data for sk in sks])
+        e = multiparty._flood(int(np.random.default_rng(6).integers(1 << 62)), (MP_PARTIES, p.N),
+                              multiparty.MP_SD, dev)
+        whole = multiparty._pipeline(mods, 1, s_stack, ct.c0.data, ct.c1.data, e)
+        parts = [multiparty.PartialDecryption(
+            rns.RnsPoly(multiparty._share(mods, 1, i == 0, s_stack[i], ct.c1.data, ct.c0.data,
+                                          e[i]), mods, rns.EVAL), i == 0)
+            for i in range(MP_PARTIES)]
+        if not torch.equal(multiparty.fuse(parts).data, whole):
+            fail(f"{tag} the pipeline differs from the fusion of the shares on the same deviates")
+        print(f"{tag} threshold_decrypt_pipeline byte-equal to decrypt_lead / decrypt_main's "
+              f"shares fused, on the same deviates")
+        sd = float(e.double().std())
+        print(f"{tag} flood deviates: sample standard deviation {sd:.1f} over "
+              f"{e.numel()} draws = {sd / multiparty.MP_SD:.5f} x 2^20 (within 0.02 of 1)")
+        if not abs(sd / multiparty.MP_SD - 1) < 0.02:
+            fail(f"{tag} the flood's standard deviation {sd} is not within 2 % of 2^20")
+
+        mp_joint(tag, ctx, sks, pk, rng)
+        mp_boot(tag, dev)
+        mp_bgv(tag, dev)
+
+        t0 = time.perf_counter()
+        card_shares = zero_flood_shares(ctx, sks, ct)
+        cpu = ckks.CkksContext.create(**MP_CONFIG, device="cpu")
+        _, cpu_sks, _, _, cpu_ct = mp_keys(cpu, 3)
+        for i, (got, want) in enumerate(zip(card_shares, zero_flood_shares(cpu, cpu_sks, cpu_ct))):
+            if not torch.equal(got.cpu(), want):
+                fail(f"{tag} share {i} at flood 0 differs between the card and the CPU port")
+        print(f"{tag} the {MP_PARTIES} shares and their fusion at flood 0: the card's byte-equal "
+              f"to the CPU port's, same seed ({time.perf_counter() - t0:.1f} s with the CPU keys)")
+
+    int_peak = int_multiply_peak(dev)
+    one_ms = time_ms(pipe, reps=11)
+    dev_ms = device_split(tag, "threshold_decrypt_pipeline batch 1", pipe, 11, one_ms, shapes,
+                          card)
+    print(f"{tag} threshold_decrypt_pipeline ({MP_PARTIES} parties, N = {p.N}) batch 1: "
+          f"{one_ms:.3f} ms (CUDA events, median of 11); the C++ reference's 3-of-5 combine "
+          f"on an EPYC 7763 core: ~{MP_REFERENCE_CPU_MS:g} ms (BASELINE.md:14, not a "
+          f"target)  ({card})")
+    limb_kernels_at(tag, "[mp] phase", dev, phase_shapes, dev_ms, errors, int_peak, card)
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return {name: launches[name] for name in LIMB_KERNELS}
+
+
+def adv_keys(ctx, seed: int):
+    """keygen, the relinearization key, EvalSum's rotation keys (1, 2, ...,
+    N/4) and z uniform in [-4, 4) with its encryption, from seed: the
+    draws the card and the CPU both make."""
+    from fhe_tpu_torch.pke import advanced
+    rng = np.random.default_rng(seed)
+    sk, pk = ctx.keygen(rng)
+    evk = ctx.relin_key_gen(sk, rng)
+    sum_keys = advanced.sum_key_gen(ctx, sk, rng)
+    z = rng.uniform(-4, 4, size=ctx.params.N // 2)
+    return rng, sk, pk, evk, sum_keys, z, ctx.encrypt(pk, z, rng)
+
+
+def levels_needed(ctx, degree: int) -> int:
+    """The rescales eval_logistic at `degree` takes: run at N = 2^10 on the
+    CPU, on a chain 4 levels longer than ctx's."""
+    from fhe_tpu_torch.pke import advanced, ckks
+    c = ckks.CkksContext.create(N=1 << 10, num_levels=len(ctx.params.moduli) + 3,
+                                scale_bits=ctx.params.scale_bits,
+                                dnum=ctx.params.num_part_q, device="cpu")
+    rng = np.random.default_rng(0)
+    sk, pk = c.keygen(rng)
+    out = advanced.eval_logistic(c, c.encrypt(pk, np.zeros(1), rng), ADV_LOGISTIC[0],
+                                 ADV_LOGISTIC[1], degree, c.relin_key_gen(sk, rng))
+    return len(c.params.moduli) - len(out.moduli)
+
+
+def adv_phase(dev, errors: Errors, card: str) -> dict:
+    """The [adv] phase: advanced SHE at bench config 3 on the card; returns
+    the launches of a counted eval_sum and eval_logistic."""
+    from fhe_tpu_torch.pke import advanced, ckks
+    t_phase = time.perf_counter()
+    tag = "[adv]"
+    ctx = ckks.CkksContext.create(**CKKS_CONFIG, device=dev)
+    p = ctx.params
+    slots = p.N // 2
+    grow = p.N / 256
+    degree = ADV_LOGISTIC[2]
+    need = levels_needed(ctx, degree)
+    while need > len(p.moduli) - 1:
+        print(f"{tag} eval_logistic at degree {degree} needs {need} levels, bench config 3 has "
+              f"{len(p.moduli) - 1}")
+        degree -= 1
+        need = levels_needed(ctx, degree)
+    logistic = (ADV_LOGISTIC[0], ADV_LOGISTIC[1], degree)
+    print(f"{tag} bench config 3 (N = {p.N}, {len(p.moduli)} limbs); eval_logistic on "
+          f"[{logistic[0]:g}, {logistic[1]:g}] at degree {degree}: {need} levels")
+    with limb_launch_shapes() as phase_shapes:
+        t0 = time.perf_counter()
+        rng, sk, pk, evk, sum_keys, z, ct = adv_keys(ctx, SEED + 30)
+        lt_keys = ctx.rotation_key_gen(sk, [slots - 1], rng)
+        merge_keys = advanced.merge_key_gen(ctx, sk, rng, 4)
+        zs = [rng.normal(size=slots) * 0.3 for _ in range(4)]
+        cts = [ctx.encrypt(pk, x, rng) for x in zs]
+        torch.cuda.synchronize()
+        print(f"{tag} keygen, relin key, {len(sum_keys)} EvalSum rotation keys, the linear "
+              f"transform's and EvalMerge's {1 + len(merge_keys)}, 5 encryptions on {dev}: "
+              f"{time.perf_counter() - t0:.3f} s (host clock, with the host draws)")
+
+        advanced.eval_sum(ctx, ct, slots, sum_keys)                     # warm
+        s_out, s_launches, s_shapes = counted(tag, "eval_sum", lambda: advanced.eval_sum(
+            ctx, ct, slots, sum_keys))
+        l_out, l_launches, l_shapes = counted(tag, "eval_logistic", lambda: advanced.eval_logistic(
+            ctx, ct, *logistic, evk))
+        band = np.zeros((slots, slots))
+        rows = np.arange(slots)
+        for d, w in ((0, 1.0), (1, 0.5), (-1, -0.25)):
+            band[rows, (rows + d) % slots] = w
+        ws = [0.5, -1.25, 2.0, 0.75]
+        rot_keys = {**sum_keys, **lt_keys}
+        ops = {  # op: (ciphertext, expected slots, fhe_tpu's test bound at N = 256)
+            f"eval_sum over {slots} slots ({len(sum_keys)} rotations)":
+                (s_out, np.full(slots, z.sum()), 1e-2),
+            f"eval_logistic on [{logistic[0]:g}, {logistic[1]:g}], degree {degree}":
+                (l_out, 1 / (1 + np.exp(-z)), 2e-2),
+            "eval_inner_product": (advanced.eval_inner_product(
+                ctx, cts[0], cts[1], slots, evk, sum_keys), np.full(slots, zs[0] @ zs[1]), 5e-2),
+            "eval_linear_wsum of 4": (advanced.eval_linear_wsum(ctx, cts, ws),
+                                      sum(w * x for w, x in zip(ws, zs)), 1e-2),
+            "eval_merge of 4": (advanced.eval_merge(ctx, cts, merge_keys),
+                                np.concatenate([[x[0] for x in zs], np.zeros(slots - 4)]), 1e-2),
+            f"eval_linear_transform, banded {slots} x {slots} (diagonals 0, +1, -1)":
+                (advanced.eval_linear_transform(ctx, cts[0], band, rot_keys), band @ zs[0], 1e-2),
+            "compress to one tower": (advanced.compress(ctx, cts[1], 1), zs[1], 1e-2)}
+        for op, (got, want, tol) in ops.items():
+            ckks_values_close(f"{op} (tolerance fhe_tpu's {tol:g} x N/256)",
+                              ctx.decrypt(sk, got).real, want, tol * grow, tag)
+
+        t0 = time.perf_counter()
+        cpu = ckks.CkksContext.create(**CKKS_CONFIG, device="cpu")
+        _, _, _, cpu_evk, cpu_sum_keys, _, cpu_ct = adv_keys(cpu, SEED + 30)
+        cpu_ops = (advanced.eval_sum(cpu, cpu_ct, slots, cpu_sum_keys),
+                   advanced.eval_logistic(cpu, cpu_ct, *logistic, cpu_evk))
+        for what, got, want in zip(("eval_sum", "eval_logistic"), (s_out, l_out), cpu_ops):
+            ckks_same(f"the card's {what} against the CPU port's, same seed", want, got, tag)
+        print(f"{tag} the CPU port's keys, eval_sum and eval_logistic: "
+              f"{time.perf_counter() - t0:.1f} s")
+        inner = lambda: advanced.eval_inner_product(ctx, cts[0], cts[1], slots, evk, sum_keys)
+        _, _, i_shapes = counted(tag, "eval_inner_product", inner)
+
+    int_peak = int_multiply_peak(dev)
+    dev_ms = {}
+    for what, fn, shp in (
+            ("eval_logistic", lambda: advanced.eval_logistic(ctx, ct, *logistic, evk), l_shapes),
+            ("eval_inner_product", inner, i_shapes)):
+        ms = time_ms(fn, reps=5)
+        dev_ms.update(device_split(tag, f"{what} batch 1", fn, 5, ms, shp, card))
+        print(f"{tag} {what} batch 1: {ms:.3f} ms (CUDA events, median of 5)  ({card})")
+    limb_kernels_at(tag, "[adv] phase", dev, phase_shapes, dev_ms, errors, int_peak, card)
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return {name: s_launches[name] + l_launches[name] for name in LIMB_KERNELS}
+
+
+def pre_ckks(ctx, seed: int):
+    """Alice's and Bob's keys, z and its encryption under Alice's key, the
+    re-encryption key and the re-encryption re-randomized under Bob's
+    public key, from seed: (sk_a, sk_b, z, ct, the key, (c0, c1))."""
+    from fhe_tpu_torch.pke import pre
+    rng = np.random.default_rng(seed)
+    sk_a, pk_a = ctx.keygen(rng)
+    sk_b, pk_b = ctx.keygen(rng)
+    z = rng.normal(size=ctx.params.N // 2)
+    ct = ctx.encrypt(pk_a, z, rng)
+    rk = pre.re_key_gen(ctx.params, sk_a, sk_b, rng)
+    return sk_a, sk_b, z, ct, (lambda: pre.re_encrypt(ctx.params, rk, ct.c0, ct.c1, rng, pk_b))
+
+
+def pre_phase(dev, errors: Errors, card: str) -> dict:
+    """The [pre] phase: proxy re-encryption on the card, CKKS at bench config
+    3 and BGV on the [bgv] ring; returns the launches of one counted CKKS
+    re_encrypt."""
+    from fhe_tpu_torch.lattice import rns
+    from fhe_tpu_torch.pke import bgv, ckks, pre
+    t_phase = time.perf_counter()
+    tag = "[pre]"
+    with limb_launch_shapes() as phase_shapes:
+        ctx = ckks.CkksContext.create(**CKKS_CONFIG, device=dev)
+        sk_a, sk_b, z, ct, hop = pre_ckks(ctx, SEED + 40)
+        hop()                                                           # warm (draws too)
+        (c0, c1), launches, shapes = counted(tag, "re_encrypt (CKKS, HYBRID, re-randomized)", hop)
+        out = ckks.Ciphertext(c0, c1, ct.scale)
+        ckks_values_close("CKKS re-encrypted to Bob, Bob's decryption (tolerance fhe_tpu's 1e-2 "
+                          "x N/256)", ctx.decrypt(sk_b, out).real, z, 1e-2 * ctx.params.N / 256,
+                          tag)
+        bad = float(np.abs(ctx.decrypt(sk_a, out).real - z).max())
+        print(f"{tag} Alice's key on the re-encryption: max error {bad:.3e} (must exceed 0.1)")
+        if not bad > 0.1:
+            fail(f"{tag} Alice's key still decrypts the re-encrypted ciphertext")
+        cpu = ckks.CkksContext.create(**CKKS_CONFIG, device="cpu")
+        cpu_hop = pre_ckks(cpu, SEED + 40)[-1]
+        cpu_hop()
+        ckks_same("the card's CKKS re-encryption against the CPU port's, same seed",
+                  ckks.Ciphertext(*cpu_hop(), ct.scale), out, tag)
+
+        g = bgv.BgvContext.create(**BGV_CONFIG, device=dev)
+        rng = np.random.default_rng(SEED + 41)
+        sk_a, pk_a = g.keygen(rng)
+        sk_b, pk_b = g.keygen(rng)
+        m = rng.integers(0, g.t, size=g.params.N)
+        gct = g.encrypt(pk_a, m, rng)
+        for method, bits in (("hybrid", 0), ("bv", 14)):
+            rk = pre.re_key_gen(g.params, sk_a, sk_b, rng, method=method, digit_bits=bits)
+            c0, c1 = pre.re_encrypt(g.params, rk, gct.c0, gct.c1, rng, pk_b)
+            pke_exact(tag, f"BGV re-encrypted to Bob, {method.upper()} key"
+                      f"{f' ({bits}-bit digits)' if bits else ''}, Bob's decryption",
+                      g.decrypt(sk_b, bgv.Ciphertext(c0, c1)), m)
+    int_peak = int_multiply_peak(dev)
+    ms = time_ms(hop, reps=11)
+    dev_ms = device_split(tag, "CKKS re_encrypt batch 1", hop, 11, ms, shapes, card)
+    print(f"{tag} CKKS re_encrypt (re-randomized) batch 1: {ms:.3f} ms (CUDA events, median of "
+          f"11)  ({card})")
+    limb_kernels_at(tag, "[pre] phase", dev, phase_shapes, dev_ms, errors, int_peak, card)
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return {name: launches[name] for name in LIMB_KERNELS}
+
+
 def time_ms(fn, reps: int) -> float:
     """Median CUDA-event time of fn() in ms; the caller has warmed fn up."""
     times = []
@@ -2319,8 +2799,13 @@ def main() -> int:
     ckks_launches = ckks_phase(dev, errors, card)
     bfv_launches = bfv_phase(dev, errors, card)
     bgv_launches = bgv_phase(dev, errors, card)
+    t_new = time.perf_counter()
+    new_launches = [mp_phase(dev, errors, card), adv_phase(dev, errors, card),
+                    pre_phase(dev, errors, card)]
+    print(f"[mp] + [adv] + [pre] took {time.perf_counter() - t_new:.3f} s (host clock)")
     for name in LIMB_KERNELS:
         launches[name] += ckks_launches[name] + bfv_launches[name] + bgv_launches[name]
+        launches[name] += sum(n[name] for n in new_launches)
     times = timings(dev, ctx, key, cts, errors, card)
     times.update(rns_times)
     times.update(radix_times)

@@ -5,7 +5,10 @@ example `np.asarray(key.bsk)`), so this package never imports jax: the
 TFHE keys and ciphertexts, the RLWE keys (`rlwe_secret_key`,
 `rlwe_public_key`, `eval_key`, `prepared_eval_key`, `bv_eval_key`) and the
 CKKS, BGV and BFV ciphertexts (`ckks_ciphertext`, `bgv_ciphertext`,
-`bfv_ciphertext`).
+`bfv_ciphertext`), and the multiparty state a seed cannot rebuild: a
+party's partial decryption (`partial_decryption`) and interactive-
+bootstrap shares (`int_boot_shares`); joint keys are `eval_key` /
+`rlwe_public_key` of their arrays.
 Residues are uint32 below 2^31 in fhe_tpu and int32 here; the secret key
 is small signed integers in both.  The tensors go to the first CUDA card
 unless the caller names another device.
@@ -21,6 +24,7 @@ from .pke import rlwe
 from .pke.bfv import Ciphertext as BfvCiphertext
 from .pke.bgv import Ciphertext as BgvCiphertext
 from .pke.ckks import Ciphertext as CkksCiphertext
+from .pke.multiparty import IntBootShares, PartialDecryption
 from .tfhe.acc import DmKey, LmkcdeyKey
 from .tfhe.lwe import LweCiphertext, LwePublicKey, LweSecretKey, LweSwitchingKey
 from .tfhe.radix import RadixInt, RadixParams
@@ -177,6 +181,20 @@ def bfv_ciphertext(c0, c1, moduli, c2=None, device="cuda") -> BfvCiphertext:
     poly = lambda x, name: _poly(x, moduli, name, device)
     return BfvCiphertext(c0=poly(c0, "c0"), c1=poly(c1, "c1"),
                          c2=None if c2 is None else poly(c2, "c2"))
+
+
+def partial_decryption(share, moduli, is_lead: bool, device="cuda") -> PartialDecryption:
+    """fhe_tpu multiparty.PartialDecryption (share.data, share.moduli,
+    is_lead) -> PartialDecryption."""
+    return PartialDecryption(share=_poly(share, moduli, "share", device), is_lead=bool(is_lead))
+
+
+def int_boot_shares(h0, h0_moduli, h1, h1_moduli, n_parties: int,
+                    device="cuda") -> IntBootShares:
+    """fhe_tpu multiparty.IntBootShares (h0.data over Qc, h1.data over Q,
+    their moduli, n_parties) -> IntBootShares."""
+    return IntBootShares(h0=_poly(h0, h0_moduli, "h0", device),
+                         h1=_poly(h1, h1_moduli, "h1", device), n_parties=int(n_parties))
 
 
 def _limbs(x, moduli, name: str, device) -> torch.Tensor:

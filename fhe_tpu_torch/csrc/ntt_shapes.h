@@ -1,8 +1,8 @@
 // The log2 N the NTT kernels (ntt.cuh) are instantiated for: every ring
 // dimension of the parameter sets (tfhe/params.py), TOY's 2^9 to
-// TOY_RADIX's 2^13, 2^12, which no set uses but callers of the NTT itself
-// had before the kernels were specialised, CKKS bench config 3's 2^14
-// (pke/ckks.py) and BFV bench config 4's 2^15 (pke/bfv.py).  One list for
+// TOY_RADIX's 2^13, 2^12 (CKKS bench config 5's threshold decrypt,
+// pke/multiparty.py), CKKS bench config 3's 2^14 (pke/ckks.py) and BFV
+// bench config 4's 2^15 (pke/bfv.py).  One list for
 // the build (kernels/_build.py compiles ntt_inst.cu once per entry), the
 // dispatch (ntt.cu) and the Python wrappers' check (kernels/ntt.py parses
 // it).  2^15 is the largest the design takes (ntt_word's swizzles, the

@@ -1,5 +1,6 @@
-"""Ring arithmetic: primes, modular arithmetic, negacyclic NTT."""
+"""Ring arithmetic: primes, modular arithmetic, negacyclic NTT; function
+approximation (Chebyshev and Hermite coefficients, host numpy)."""
 
-from . import modmath, ntt, primes
+from . import approx, modmath, ntt, primes
 
-__all__ = ["modmath", "ntt", "primes"]
+__all__ = ["approx", "modmath", "ntt", "primes"]

@@ -17,8 +17,7 @@ The host draws keep fhe_tpu's `np.random.Generator` order, so a seed gives
 byte-identical keys and ciphertexts.  Ring data lives on the device of the
 keys (`keygen(..., device=)`); the NTTs are kernels 1-2 on a CUDA device
 (`lattice.rns`), the basis switches and the digit inner products PyTorch
-int64 ops, as fhe_tpu leaves them to XLA.  The multiparty `a_common` of
-`evk_gen` waits (ROADMAP.md queue 1, item 12).
+int64 ops, as fhe_tpu leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -186,10 +185,15 @@ def _plain_mod(params) -> int | None:
 
 
 def evk_gen(params, s_old: RnsPoly, sk_new: SecretKey, rng: np.random.Generator,
-            noise_scale: int = 1) -> EvalKey:
+            noise_scale: int = 1, a_common: torch.Tensor | None = None) -> EvalKey:
     """Switching key s_old -> sk_new (keyswitch-hybrid.cpp:48-137); s_old
     EVAL over the full Q chain (s^2 for relinearization, s(X^k) for a
-    rotation).  Digit d draws a, then e, as fhe_tpu does."""
+    rotation).  Digit d draws a, then e, as fhe_tpu does.
+
+    a_common: [dnum, L_qp, N] `a` digits to reuse instead of drawing them
+    (only e is drawn then): the multiparty joint-key protocol
+    (base-multiparty.cpp MultiKeySwitchGen) puts every party's share on the
+    same uniform digits, so that the b components sum."""
     q_mods, p_mods = tuple(params.moduli), tuple(params.special_mods)
     qp = q_mods + p_mods
     L, npp, N = len(q_mods), params.num_per_part, params.N
@@ -198,7 +202,10 @@ def evk_gen(params, s_old: RnsPoly, sk_new: SecretKey, rng: np.random.Generator,
     pmodq = _p_mod_q(p_mods, qp)
     bs, as_ = [], []
     for d in range(params.num_part_q):
-        a = uniform_poly(rng, qp, N, device=dev)
+        if a_common is None:
+            a = uniform_poly(rng, qp, N, device=dev)
+        else:
+            a = RnsPoly(a_common[d], qp, EVAL)
         e = _gauss_eval(params, rng, qp, dev, noise_scale)
         b = rns.add(rns.neg(rns.mul(a, s_new)), e)
         lo, hi = d * npp, min((d + 1) * npp, L)

@@ -480,3 +480,59 @@ def test_euint8_add_on_card_matches_cpu(cuda):
         outs.append(s.value.ct.to("cpu"))
     _same(outs[1].a, outs[0].a)
     _same(outs[1].b, outs[0].b)
+
+
+# bench config 5 (bench.py:330): the threshold decrypt's ring
+MP_CONFIG = dict(N=1 << 12, num_levels=3, scale_bits=29, dnum=2)
+
+
+@pytest.mark.parametrize("basis", ["Q", "Q u P"])
+def test_limb_stacked_ntt_kernels_at_threshold_width(basis, cuda, gen):
+    """N = 2^12 over bench config 5's own moduli, Q (4 limbs: the shares and
+    the fusion) and Q u P (6: the keys), at 1 row and 5 (one a party, the
+    pipeline's floods): byte-equal to the per-limb loop, and the round
+    trip."""
+    from fhe_tpu_torch.pke import ckks
+    p = ckks.CkksContext.create(**MP_CONFIG, device="cpu").params
+    moduli = tuple(p.moduli) + (tuple(p.special_mods) if basis == "Q u P" else ())
+    plan = rns.make_rns_plan(p.N, moduli, cuda)
+    for rows in (1, 5):
+        x = torch.stack([_residues(gen, q, (rows, p.N), cuda) for q in moduli], dim=1)
+        f = rns.ntt_forward(plan, x)
+        _same(f, rns.forward_plain(plan, x))
+        i = rns.ntt_inverse(plan, f)
+        _same(i, rns.inverse_plain(plan, f))
+        _same(i, x)
+
+
+def test_flood_zero_shares_on_card_match_cpu(cuda):
+    """Bench config 5's 5-party keys and ciphertext made from one seed on
+    the CPU and on the card: each party's share with the flood at 0, and
+    the pipeline's fusion at flood 0, byte-equal; the card's flooded
+    pipeline decodes within bench.py's 5 sigma_slot, through the
+    limb-stacked kernels."""
+    from fhe_tpu_torch.pke import ckks, multiparty
+    outs = []
+    for dev in ("cpu", cuda):
+        ctx = ckks.CkksContext.create(**MP_CONFIG, device=dev)
+        p = ctx.params
+        rng = np.random.default_rng(3)
+        sks, pk = multiparty.multiparty_keygen(p, 5, rng, device=dev)
+        z = rng.normal(size=p.N // 2)
+        ct = ctx.encrypt(pk, z, rng)
+        mods = tuple(ct.moduli)
+        s_stack = torch.stack([sk.eval_poly(mods).data for sk in sks])
+        zero = torch.zeros(5, p.N, dtype=torch.int64, device=dev)
+        outs.append([multiparty._share(mods, 1, i == 0, s_stack[i], ct.c1.data, ct.c0.data,
+                                       zero[i]).cpu() for i in range(5)] +
+                    [multiparty._pipeline(mods, 1, s_stack, ct.c0.data, ct.c1.data, zero).cpu()])
+    for got, want in zip(outs[1], outs[0]):
+        _same(got, want)
+    before = launch_counts()
+    ph = multiparty.threshold_decrypt_pipeline(p, sks, ct.c0, ct.c1, np.random.default_rng(5))
+    after = launch_counts()
+    assert after["ntt_forward_limbs"] - before["ntt_forward_limbs"] == 1
+    assert after["ntt_inverse_limbs"] - before["ntt_inverse_limbs"] == 1
+    m = ckks._center(rns.to_bigint(ph), rns.modulus_product(ph.moduli))
+    got = ckks.decode(m, p.N, ct.scale).real
+    assert np.abs(got - z).max() < 5 * multiparty.MP_SD * np.sqrt(5 * p.N) / ct.scale

@@ -251,3 +251,40 @@ def test_port_runs_a_gate_without_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
     assert fhe_tpu_torch.__name__ == "fhe_tpu_torch"
+
+
+def test_port_runs_multiparty_advanced_and_pre_without_jax():
+    """pke.multiparty, pke.advanced and pke.pre import neither jax nor
+    fhe_tpu: with jax blocked from import, a 3-party threshold decrypt, an
+    eval_logistic and a PRE hop at N = 256 on the CPU."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np
+        from fhe_tpu_torch.lattice import rns
+        from fhe_tpu_torch.pke import CkksContext, advanced, ckks, multiparty, pre
+        ctx = CkksContext.create(N=256, num_levels=6, scale_bits=26, dnum=2, device="cpu")
+        rng = np.random.default_rng(1)
+        sks, pk = multiparty.multiparty_keygen(ctx.params, 3, rng, device="cpu")
+        z = rng.uniform(-4, 4, size=128)
+        ct = ctx.encrypt(pk, z, rng)
+        ph = multiparty.threshold_decrypt_pipeline(ctx.params, sks, ct.c0, ct.c1, rng)
+        m = ckks._center(rns.to_bigint(ph), rns.modulus_product(ct.moduli))
+        assert np.abs(ckks.decode(m, 256, ct.scale).real - z).max() < 1.2
+        sk, pk1 = ctx.keygen(rng)
+        sk2, pk2 = ctx.keygen(rng)
+        out = advanced.eval_logistic(ctx, ctx.encrypt(pk1, z, rng), -5, 5, 8,
+                                     ctx.relin_key_gen(sk, rng))
+        assert np.abs(ctx.decrypt(sk, out).real - 1 / (1 + np.exp(-z))).max() < 5e-2
+        ct1 = ctx.encrypt(pk1, z, rng)
+        c0, c1 = pre.re_encrypt(ctx.params, pre.re_key_gen(ctx.params, sk, sk2, rng), ct1.c0,
+                                ct1.c1, rng, pk2)
+        assert np.abs(ctx.decrypt(sk2, ckks.Ciphertext(c0, c1, ct1.scale)).real - z).max() < 1e-2
+        assert not [m for m in sys.modules if m == "fhe_tpu" or m.startswith("fhe_tpu.")]
+        print("ok")
+    """)
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
