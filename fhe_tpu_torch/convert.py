@@ -3,7 +3,8 @@
 The functions take the arrays of fhe_tpu's objects as numpy arrays (for
 example `np.asarray(key.bsk)`), so this package never imports jax: the
 TFHE keys and ciphertexts, the RLWE keys (`rlwe_secret_key`,
-`rlwe_public_key`, `eval_key`, `prepared_eval_key`, `bv_eval_key`) and the
+`rlwe_public_key`, `eval_key`, `prepared_eval_key`, `bv_eval_key`, and
+CKKS bootstrapping's key dict, `bootstrap_keys`) and the
 CKKS, BGV and BFV ciphertexts (`ckks_ciphertext`, `bgv_ciphertext`,
 `bfv_ciphertext`), and the multiparty state a seed cannot rebuild: a
 party's partial decryption (`partial_decryption`) and interactive-
@@ -132,6 +133,23 @@ def eval_key(b, a, moduli_qp, num_per_part: int, device="cuda") -> rlwe.EvalKey:
     return rlwe.EvalKey(b=_limbs(b, moduli_qp, "b", device), a=_limbs(a, moduli_qp, "a", device),
                         moduli_qp=tuple(int(q) for q in moduli_qp),
                         num_per_part=int(num_per_part))
+
+
+def bootstrap_keys(keys: dict, device="cuda") -> dict:
+    """fhe_tpu bootstrap.keygen's dict -> the port's: "rot" ({r: EvalKey}),
+    "conj", "evk" and, for SPARSE_ENCAPSULATED, "swk_down" / "swk_up".
+    Each value is fhe_tpu's EvalKey (or, under "rot", a dict of them),
+    read by duck typing: its b and a arrays (np.asarray), moduli_qp and
+    num_per_part, through `eval_key`."""
+    def one(k) -> rlwe.EvalKey:
+        return eval_key(np.asarray(k.b), np.asarray(k.a), k.moduli_qp, k.num_per_part, device)
+    unknown = set(keys) - {"rot", "conj", "evk", "swk_down", "swk_up"}
+    if unknown or not {"rot", "conj", "evk"} <= set(keys):
+        raise ValueError(f"a bootstrap key dict holds rot, conj, evk and optionally swk_down "
+                         f"and swk_up; got {sorted(keys)}")
+    out = {"rot": {int(r): one(k) for r, k in keys["rot"].items()}}
+    out.update({name: one(keys[name]) for name in keys if name != "rot"})
+    return out
 
 
 def prepared_eval_key(b_mont, a_mont, moduli_qp, num_per_part: int,

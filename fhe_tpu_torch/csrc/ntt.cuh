@@ -51,6 +51,19 @@
 //   registers and no spill; its cost is one resident block a SM (128 KiB
 //   of shared memory), so a short batch fills the card only through its
 //   rows times limbs.  The smaller N compile to the kernels they were.
+// - N = 2^16 (the 128-bit bootstrapping set): a row (256 KiB) is more than
+//   a block's 227 KiB of shared memory, so after its first stage it runs
+//   as two independent 2^15 transforms, each half a block on the 2^15
+//   rounds with its own sub-table (ntt_launch.h kSplitLogN).  Of the two
+//   designs (a cluster of two blocks exchanging the stage through
+//   distributed shared memory, or the stage as its own pass over global
+//   memory) this is the second, nearly: the forward folds the stage into
+//   its first-round loads (each half block reads both halves of the row,
+//   one launch, no extra pass) and stores its half's slots at stride 2;
+//   the inverse loads its half's slots at stride 2 and leaves the stage,
+//   with N^-1 folded in, to a second launch in place (inverse_stage_kernel:
+//   one more read and write of the row).  It reuses the 2^15 code as it
+//   stands; the cluster would save the inverse's extra pass.
 //
 // The limb-stacked kernels (forward_limbs_kernel, inverse_limbs_kernel) run
 // the same rows on an RNS ring element [rows, L, N] (fhe_tpu/lattice/rns.py
@@ -115,12 +128,23 @@ struct Scale {
   uint32_t ninv, ninv_s, w1_ninv, w1_ninv_s;
 };
 
+// Half h of a 2N-point row (kSplit; ntt_launch.h kSplitLogN): the split
+// stage's twiddle W[1] and its Shoup companion.
+struct Half {
+  int h;
+  uint32_t w, ws;
+};
+
 // The forward transform of the block's P rows: this thread's row starts at
 // x (input) and y (output); rows past the end (valid false) load zeros,
-// store nothing and reach every barrier.
-template <int LogN, bool kLazy, bool kOutBr>
+// store nothing and reach every barrier.  With kSplit the row is half h of
+// a 2N-point row starting at x and y: the split stage runs as the first
+// round loads (x[i] +- W[1] x[i + N], both halves read), and the output
+// goes to positions hN + i, slots 2 brev(i) + h of the 2N-point row.
+template <int LogN, bool kLazy, bool kOutBr, bool kSplit = false>
 __device__ __forceinline__ void forward_rows(const uint32_t* x, uint32_t* y, bool valid,
-                                             uint32_t* buf, const Tables& t, uint32_t q) {
+                                             uint32_t* buf, const Tables& t, uint32_t q,
+                                             const Half& half = Half{}) {
   constexpr int G = kG<LogN>, P = kRows<LogN>, T = kRowThreads<LogN>;
   using R = NttRounds<LogN, kLazy, kThreads<LogN>>;
   const int r = threadIdx.x / T, g0 = threadIdx.x % T;
@@ -132,7 +156,21 @@ __device__ __forceinline__ void forward_rows(const uint32_t* x, uint32_t* y, boo
     const uint32_t* src = x + g;
     uint32_t v[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = valid ? src[j * G] : 0u;
+    for (int j = 0; j < 8; ++j) {
+      if constexpr (kSplit) {
+        // the split stage, values in [0, 4q) (lazy) or [0, q)
+        const uint32_t a = src[j * G], b = src[j * G + (1 << LogN)];
+        if constexpr (kLazy) {
+          const uint32_t wb = shoup_lazy(b, half.w, half.ws, q);
+          v[j] = half.h ? a - wb + 2 * q : a + wb;
+        } else {
+          const uint32_t wb = reduce(shoup_lazy(b, half.w, half.ws, q), q);
+          v[j] = half.h ? reduce(a - wb + q, q) : reduce(a + wb, q);
+        }
+      } else {
+        v[j] = valid ? src[j * G] : 0u;
+      }
+    }
     ntt_round<true, LogN, LogN - 3, 3, kLazy, true>(v, 0, t, q);
 #pragma unroll
     for (int j = 0; j < 8; ++j) buf[R::at(r, g, j * G, 0)] = v[j];
@@ -155,8 +193,12 @@ __device__ __forceinline__ void forward_rows(const uint32_t* x, uint32_t* y, boo
       for (int k = 0; k < 8; ++k) v[k] = reduce(reduce(v[k], 2 * q), q);
     }
     if constexpr (kOutBr) {
-      *reinterpret_cast<uint4*>(y + 8 * g) = make_uint4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<uint4*>(y + 8 * g + 4) = make_uint4(v[4], v[5], v[6], v[7]);
+      uint32_t* const dst = kSplit ? y + (half.h << LogN) : y;
+      *reinterpret_cast<uint4*>(dst + 8 * g) = make_uint4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<uint4*>(dst + 8 * g + 4) = make_uint4(v[4], v[5], v[6], v[7]);
+    } else if constexpr (kSplit) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) y[2 * (brev_bits<3>(k) * G + g) + half.h] = v[k];
     } else {
 #pragma unroll
       for (int k = 0; k < 8; ++k) y[brev_bits<3>(k) * G + g] = v[k];
@@ -164,11 +206,14 @@ __device__ __forceinline__ void forward_rows(const uint32_t* x, uint32_t* y, boo
   }
 }
 
-// The inverse transform of the block's P rows, as forward_rows.
-template <int LogN, bool kLazy>
+// The inverse transform of the block's P rows, as forward_rows.  With
+// kSplit the row is half `half` of a 2N-point row starting at x: its input
+// is slots 2i + half, its output (positions half N + i, at y) in [0, q)
+// without the scale, and the split stage is inverse_stage_kernel's.
+template <int LogN, bool kLazy, bool kSplit = false>
 __device__ __forceinline__ void inverse_rows(const uint32_t* x, uint32_t* y, bool valid,
                                              uint32_t* buf, const Tables& t, uint32_t q,
-                                             const Scale& scale) {
+                                             const Scale& scale, int half = 0) {
   constexpr int G = kG<LogN>, P = kRows<LogN>, T = kRowThreads<LogN>;
   using R = NttRounds<LogN, kLazy, kThreads<LogN>>;
   const int r = threadIdx.x / T, g0 = threadIdx.x % T;
@@ -182,7 +227,10 @@ __device__ __forceinline__ void inverse_rows(const uint32_t* x, uint32_t* y, boo
     const uint32_t* src = x + g;
     uint32_t v[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = valid ? src[brev_bits<3>(k) * G] : 0u;
+    for (int k = 0; k < 8; ++k) {
+      v[k] = kSplit ? x[2 * (brev_bits<3>(k) * G + g) + half]
+                    : (valid ? src[brev_bits<3>(k) * G] : 0u);
+    }
     ntt_round<false, LogN, 0, 3, kLazy, true>(v, h, t, q);
 #pragma unroll
     for (int k = 0; k < 8; ++k) buf[R::at(r, 8 * h, k, 0)] = v[k];
@@ -209,7 +257,8 @@ __device__ __forceinline__ void inverse_rows(const uint32_t* x, uint32_t* y, boo
     uint32_t* dst = y + g;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      dst[j * G] = reduce(shoup_lazy(lo[j] + hi[j], scale.ninv, scale.ninv_s, q), q);
+      dst[j * G] = kSplit ? reduce(reduce(lo[j] + hi[j], 2 * q), q)
+                          : reduce(shoup_lazy(lo[j] + hi[j], scale.ninv, scale.ninv_s, q), q);
       dst[(j + 4) * G] =
           reduce(shoup_lazy(lo[j] - hi[j] + lift, scale.w1_ninv, scale.w1_ninv_s, q), q);
     }
@@ -275,6 +324,72 @@ inverse_limbs_kernel(const __grid_constant__ LimbArgs args) {
                                   args.w1_ninv_s[l]});
 }
 
+// N = 2^kSplitLogN (ntt_launch.h): block (r, l, h) runs half h of row r of
+// limb l as a transform of H = N/2 on the rounds of LogN - 1, with the
+// half's table T_h from the split tables.  The forward is one launch (each
+// half reads the whole row: the split stage needs both halves, the second
+// read mostly from L2); the inverse writes each half's transform to y and
+// inverse_stage_kernel runs the split stage in place, with N^-1 folded in.
+// The single-modulus entry points run as one limb.
+constexpr int kHalfLogN = kSplitLogN - 1;
+
+template <bool kLazy, bool kOutBr>
+__global__ void __launch_bounds__(kThreads<kHalfLogN>, 1)
+forward_half_kernel(const __grid_constant__ LimbArgs args) {
+  constexpr int N = 1 << kSplitLogN, H = N / 2;
+  uint32_t* const buf = exchange_buffer<kHalfLogN>();
+  const int l = blockIdx.y, h = blockIdx.z;
+  const size_t at = (static_cast<size_t>(blockIdx.x) * args.limbs + l) * N;
+  const uint32_t* w = args.w + static_cast<size_t>(l) * N + h * H;
+  const uint32_t* ws = args.ws + static_cast<size_t>(l) * N + h * H;
+  const Tables t{w, ws, w, ws, nullptr};
+  forward_rows<kHalfLogN, kLazy, kOutBr, true>(args.x + at, args.y + at, true, buf, t,
+                                               args.q[l], Half{h, w[0], ws[0]});
+}
+
+template <bool kLazy>
+__global__ void __launch_bounds__(kThreads<kHalfLogN>, 1)
+inverse_half_kernel(const __grid_constant__ LimbArgs args) {
+  constexpr int N = 1 << kSplitLogN, H = N / 2;
+  uint32_t* const buf = exchange_buffer<kHalfLogN>();
+  const int l = blockIdx.y, h = blockIdx.z;
+  const size_t at = (static_cast<size_t>(blockIdx.x) * args.limbs + l) * N;
+  const uint32_t* w = args.w + static_cast<size_t>(l) * N + h * H;
+  const uint32_t* ws = args.ws + static_cast<size_t>(l) * N + h * H;
+  const Tables t{w, ws, w, ws, nullptr};
+  // the half's last stage takes T_h[1], unscaled
+  inverse_rows<kHalfLogN, kLazy, true>(args.x + at, args.y + at + h * H, true, buf, t,
+                                       args.q[l], Scale{0, 0, w[1], ws[1]}, h);
+}
+
+// The inverse's split stage on y in place, (a + b) N^-1 and (a - b) W[1]
+// N^-1 (W the inverse table) from the halves' outputs a = y[i], b = y[i +
+// N/2], both in [0, q): block (rl, c) takes row-limb rl, four pairs a
+// thread from 4 (256 c + thread).  (A template, as every kernel here: each
+// N's unit includes this file.)
+constexpr int kStageThreads = 256;
+
+template <int LogN>
+__global__ void __launch_bounds__(kStageThreads)
+inverse_stage_kernel(const __grid_constant__ LimbArgs args) {
+  constexpr int N = 1 << LogN, H = N / 2;
+  const int l = blockIdx.x % args.limbs;
+  uint32_t* const p =
+      args.y + static_cast<size_t>(blockIdx.x) * N + 4 * (blockIdx.y * kStageThreads + threadIdx.x);
+  const uint32_t q = args.q[l];
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const uint4 b = *reinterpret_cast<const uint4*>(p + H);
+  auto lo = [&](uint32_t x, uint32_t y) {
+    return reduce(shoup_lazy(x + y, args.ninv[l], args.ninv_s[l], q), q);
+  };
+  auto hi = [&](uint32_t x, uint32_t y) {
+    return reduce(shoup_lazy(x - y + q, args.w1_ninv[l], args.w1_ninv_s[l], q), q);
+  };
+  *reinterpret_cast<uint4*>(p) = make_uint4(lo(a.x, b.x), lo(a.y, b.y), lo(a.z, b.z), lo(a.w, b.w));
+  *reinterpret_cast<uint4*>(p + H) =
+      make_uint4(hi(a.x, b.x), hi(a.y, b.y), hi(a.z, b.z), hi(a.w, b.w));
+}
+
 // The launch of a kernel of N = 2^LogN on `blocks` blocks: where the
 // exchange buffer is dynamic shared memory, the kernel's cap is raised to
 // it at its first launch on each device (the attribute belongs to the
@@ -304,28 +419,72 @@ unsigned row_blocks(int rows) {
   return static_cast<unsigned>((rows + kRows<LogN> - 1) / kRows<LogN>);
 }
 
+// The split transforms at N = 2^kSplitLogN (LimbArgs; one limb for Args).
+inline LimbArgs one_limb(const Args& a) {
+  LimbArgs out{a.x, a.y, a.w, a.ws, a.rows, 1, {}, {}, {}, {}, {}};
+  out.q[0] = a.q;
+  out.ninv[0] = a.ninv;
+  out.ninv_s[0] = a.ninv_s;
+  out.w1_ninv[0] = a.w1_ninv;
+  out.w1_ninv_s[0] = a.w1_ninv_s;
+  return out;
+}
+
+template <bool kLazy, bool kOutBr>
+int launch_forward_split(const LimbArgs& args, cudaStream_t stream) {
+  return launch<kHalfLogN, forward_half_kernel<kLazy, kOutBr>>(
+      dim3(static_cast<unsigned>(args.rows), args.limbs, 2), args, stream);
+}
+
+template <bool kLazy>
+int launch_inverse_split(const LimbArgs& args, cudaStream_t stream) {
+  const int rc = launch<kHalfLogN, inverse_half_kernel<kLazy>>(
+      dim3(static_cast<unsigned>(args.rows), args.limbs, 2), args, stream);
+  if (rc != 0 || args.rows == 0) return rc;
+  constexpr unsigned kChunks = (1u << kSplitLogN) / 2 / 4 / kStageThreads;
+  inverse_stage_kernel<kSplitLogN><<<dim3(static_cast<unsigned>(args.rows) * args.limbs, kChunks),
+                         kStageThreads, 0, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int LogN, bool kLazy, bool kOutBr>
 int launch_forward(const Args& args, cudaStream_t stream) {
-  return launch<LogN, forward_kernel<LogN, kLazy, kOutBr>>(dim3(row_blocks<LogN>(args.rows)),
-                                                           args, stream);
+  if constexpr (LogN == kSplitLogN) {
+    return launch_forward_split<kLazy, kOutBr>(one_limb(args), stream);
+  } else {
+    return launch<LogN, forward_kernel<LogN, kLazy, kOutBr>>(dim3(row_blocks<LogN>(args.rows)),
+                                                             args, stream);
+  }
 }
 
 template <int LogN, bool kLazy>
 int launch_inverse(const Args& args, cudaStream_t stream) {
-  return launch<LogN, inverse_kernel<LogN, kLazy>>(dim3(row_blocks<LogN>(args.rows)), args,
-                                                   stream);
+  if constexpr (LogN == kSplitLogN) {
+    return launch_inverse_split<kLazy>(one_limb(args), stream);
+  } else {
+    return launch<LogN, inverse_kernel<LogN, kLazy>>(dim3(row_blocks<LogN>(args.rows)), args,
+                                                     stream);
+  }
 }
 
 template <int LogN, bool kLazy>
 int launch_forward_limbs(const LimbArgs& args, cudaStream_t stream) {
-  return launch<LogN, forward_limbs_kernel<LogN, kLazy>>(
-      dim3(row_blocks<LogN>(args.rows), args.limbs), args, stream);
+  if constexpr (LogN == kSplitLogN) {
+    return launch_forward_split<kLazy, false>(args, stream);
+  } else {
+    return launch<LogN, forward_limbs_kernel<LogN, kLazy>>(
+        dim3(row_blocks<LogN>(args.rows), args.limbs), args, stream);
+  }
 }
 
 template <int LogN, bool kLazy>
 int launch_inverse_limbs(const LimbArgs& args, cudaStream_t stream) {
-  return launch<LogN, inverse_limbs_kernel<LogN, kLazy>>(
-      dim3(row_blocks<LogN>(args.rows), args.limbs), args, stream);
+  if constexpr (LogN == kSplitLogN) {
+    return launch_inverse_split<kLazy>(args, stream);
+  } else {
+    return launch<LogN, inverse_limbs_kernel<LogN, kLazy>>(
+        dim3(row_blocks<LogN>(args.rows), args.limbs), args, stream);
+  }
 }
 
 }  // namespace ntt

@@ -21,7 +21,8 @@ namespace ntt {
 // One transform of `rows` rows of N residues, x -> y (both [rows, N]), with
 // the plan's table for the direction (fwd_w / fwd_ws or inv_w / inv_ws,
 // 16-byte aligned).  The inverse's scale: N^-1 and w_1 N^-1 (w_1 = inv_w[1],
-// the last stage's twiddle), each with its Shoup companion.
+// the last stage's twiddle), each with its Shoup companion.  At N =
+// 2^kSplitLogN, w/ws are the plan's split tables instead (see kSplitLogN).
 struct Args {
   const uint32_t* x;
   uint32_t* y;
@@ -36,6 +37,19 @@ struct Args {
 // block has at most 1024 threads, so at N = 2^14 each of a row's 1024
 // threads takes two of its N/8 edge-round threads, at 2^15 four
 // (kRowThreads).
+//
+// N = 2^kSplitLogN runs as two transforms of N/2 (whose row does not fit one
+// block's shared memory): the stage on the top position bit splits a row
+// into two halves whose remaining stages are independent N/2-point
+// transforms.  A half's stage on bit b at position x (< N/2) takes entry
+// (N + h N/2 + x) >> (b + 1) of the N-point table, which is entry
+// u = (N/2 + x) >> (b + 1) of the half's own table T_h:
+//   T_h[u] = W[u + (1 + h) 2^k] for 2^k <= u < 2^(k+1),
+// the h-th half of each level of W.  The split tables (kernels/ntt.py
+// `split_tables`) are [T_0 | T_1] per limb, [limbs, N], with T_h[0], which
+// no stage reads, holding the split stage's twiddle W[1].
+constexpr int kSplitLogN = 16;
+
 template <int LogN>
 constexpr int kG = 1 << (LogN - 3);
 template <int LogN>
@@ -57,8 +71,9 @@ int launch_inverse(const Args& args, cudaStream_t stream);
 // ws are the limbs' tables stacked [limbs, N], 16-byte aligned) and, for
 // the inverse, its scale (as Args's).  A block takes P rows of one limb.
 // The kernels take the struct as a __grid_constant__ parameter and read
-// limb l's scalars by index (one constant-bank load each).
-constexpr int kMaxLimbs = 16;  // kernels/ntt.py reads this line
+// limb l's scalars by index (one constant-bank load each): five arrays of
+// kMaxLimbs words, 1,280 bytes of the 4 KiB a kernel's parameters may take.
+constexpr int kMaxLimbs = 64;  // kernels/ntt.py reads this line
 
 struct LimbArgs {
   const uint32_t* x;

@@ -1,12 +1,15 @@
 // The log2 N the NTT kernels (ntt.cuh) are instantiated for: every ring
 // dimension of the parameter sets (tfhe/params.py), TOY's 2^9 to
 // TOY_RADIX's 2^13, 2^12 (CKKS bench config 5's threshold decrypt,
-// pke/multiparty.py), CKKS bench config 3's 2^14 (pke/ckks.py) and BFV
-// bench config 4's 2^15 (pke/bfv.py).  One list for
-// the build (kernels/_build.py compiles ntt_inst.cu once per entry), the
-// dispatch (ntt.cu) and the Python wrappers' check (kernels/ntt.py parses
-// it).  2^15 is the largest the design takes (ntt_word's swizzles, the
-// three middle rounds of mid_rounds, 128 KiB of dynamic shared memory).
+// pke/multiparty.py), CKKS bench config 3's 2^14 (pke/ckks.py), BFV
+// bench config 4's 2^15 (pke/bfv.py) and the 128-bit bootstrapping set's
+// 2^16 (pke/bootstrap.py).  One list for the build (kernels/_build.py
+// compiles ntt_inst.cu once per entry), the dispatch (ntt.cu) and the
+// Python wrappers' check (kernels/ntt.py parses it).  2^15 is the largest
+// row one block holds (ntt_word's swizzles, the three middle rounds of
+// mid_rounds, 128 KiB of dynamic shared memory); 2^16 runs as two 2^15
+// halves after its first stage (ntt_launch.h kSplitLogN), and is the
+// largest the design takes.
 #pragma once
 
 #define FHE_NTT_SHAPES(X) \
@@ -16,4 +19,5 @@
   X(12)                   \
   X(13)                   \
   X(14)                   \
-  X(15)
+  X(15)                   \
+  X(16)

@@ -158,7 +158,7 @@ def _compile(out_dir: Path) -> tuple[Path, str]:
     link = [nvcc(), "-shared", "-o", tmp, *[str(obj) for _, obj, _ in procs]]
     proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
+        Path(tmp).unlink(missing_ok=True)
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     return Path(tmp), log
 

@@ -5,7 +5,8 @@ A ring element mod Q = q_0 ... q_{L-1} is one int32 tensor [..., L, N]
 q_l < 2^31; `RnsPoly` carries it with its moduli and format (COEFF or
 EVAL).  `RnsPlan` stacks the limbs' `math.ntt.NttPlan` tables as [L, N].
 `ntt_forward` / `ntt_inverse` transform every limb of every row: the
-plain per-limb loop (`forward_plain` / `inverse_plain`) for a CPU tensor,
+plain versions (`forward_plain` / `inverse_plain`, math.ntt's butterflies
+over all limbs at once, each mod its own q) for a CPU tensor,
 the limb-stacked NTT kernels (`kernels.ntt.forward_limbs` /
 `inverse_limbs`, one launch for all limbs) for a CUDA tensor; they raise
 on any other device and never fall back.  EVALUATION is natural order, as
@@ -68,18 +69,41 @@ def make_rns_plan(N: int, moduli: tuple[int, ...], device: str | torch.device = 
                    inv_w=stack("inv_w"), inv_ws=stack("inv_ws"))
 
 
-def _per_limb(plan: RnsPlan, x: torch.Tensor, fn) -> torch.Tensor:
-    return torch.stack([fn(p, x[..., l, :]) for l, p in enumerate(plan.plans)], dim=-2)
-
-
 def forward_plain(plan: RnsPlan, x: torch.Tensor) -> torch.Tensor:
-    """[..., L, N] COEFFICIENT -> EVALUATION, limb by limb; plain version."""
-    return _per_limb(plan, x, nttmod.forward_butterfly)
+    """[..., L, N] COEFFICIENT -> EVALUATION; plain version: math.ntt's
+    forward_butterfly on every limb at once, limb l mod its own q and
+    with its own table."""
+    N, L = plan.N, plan.L
+    q = plan.q.reshape(1, L, 1, 1)
+    w_all = plan.fwd_w.to(device=x.device, dtype=torch.int64)
+    y = x.reshape(-1, L, N).to(torch.int64)
+    for s in range(N.bit_length() - 1):
+        m, t = 1 << s, N >> (s + 1)
+        yv = y.reshape(-1, L, m, 2, t)
+        u = yv[..., 0, :]
+        v = yv[..., 1, :] * w_all[:, m:2 * m].reshape(1, L, m, 1) % q
+        y = (torch.stack([u + v, u - v + q], dim=-2) % q[..., None]).reshape(-1, L, N)
+    y = y[..., plan.plans[0].br.to(x.device)]
+    return y.reshape(x.shape).to(x.dtype)
 
 
 def inverse_plain(plan: RnsPlan, x: torch.Tensor) -> torch.Tensor:
-    """[..., L, N] EVALUATION -> COEFFICIENT, limb by limb; plain version."""
-    return _per_limb(plan, x, nttmod.inverse_butterfly)
+    """[..., L, N] EVALUATION -> COEFFICIENT; plain version: math.ntt's
+    inverse_butterfly on every limb at once."""
+    N, L = plan.N, plan.L
+    q = plan.q.reshape(1, L, 1, 1)
+    w_all = plan.inv_w.to(device=x.device, dtype=torch.int64)
+    y = x.reshape(-1, L, N).to(torch.int64)[..., plan.plans[0].br.to(x.device)]
+    for s in range(N.bit_length() - 1):
+        h, t = N >> (s + 1), 1 << s
+        yv = y.reshape(-1, L, h, 2, t)
+        u = yv[..., 0, :]
+        v = yv[..., 1, :]
+        y = torch.stack([(u + v) % q, (u - v + q) * w_all[:, h:2 * h].reshape(1, L, h, 1) % q],
+                        dim=-2).reshape(-1, L, N)
+    ninv = torch.tensor([p.ninv for p in plan.plans], dtype=torch.int64, device=x.device)
+    y = y * ninv.reshape(1, L, 1) % plan.q.reshape(1, L, 1)
+    return y.reshape(x.shape).to(x.dtype)
 
 
 def _dispatch(plan: RnsPlan, x: torch.Tensor, plain, kernel) -> torch.Tensor:

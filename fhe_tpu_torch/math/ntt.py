@@ -26,17 +26,24 @@ from . import primes
 from .modmath import mont_constants, mont_mul, shoup_precompute, to_mont as _to_mont
 
 
+@functools.lru_cache(maxsize=None)
 def bit_reverse_perm(n: int) -> np.ndarray:
     logn = n.bit_length() - 1
     perm = np.zeros(n, dtype=np.int32)
-    for i in range(n):
-        r = 0
-        x = i
-        for _ in range(logn):
-            r = (r << 1) | (x & 1)
-            x >>= 1
-        perm[i] = r
+    for b in range(logn):
+        perm |= ((np.arange(n) >> b) & 1).astype(np.int32) << (logn - 1 - b)
+    perm.flags.writeable = False
     return perm
+
+
+def _powers(g: int, n: int, q: int) -> np.ndarray:
+    """g^k mod q for k < n (exact int64: q < 2^31), by doubling."""
+    out = np.ones(n, dtype=np.int64)
+    k, gk = 1, g % q
+    while k < n:
+        out[k:2 * k] = out[:min(k, n - k)] * gk % q
+        k, gk = 2 * k, gk * gk % q
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,16 +82,17 @@ def make_plan(N: int, q: int, device: str | torch.device = "cpu") -> NttPlan:
     ninv = pow(N, -1, q)
     qinv_neg, _r1, r2 = mont_constants(q)
     br = bit_reverse_perm(N)
-    fwd_w = [pow(psi, int(br[j]), q) for j in range(N)]
-    inv_w = [pow(psi_inv, int(br[j]), q) for j in range(N)]
+    fwd_w = _powers(psi, N, q)[br]
+    inv_w = _powers(psi_inv, N, q)[br]
+    shoup = lambda w: (w << 32) // q            # shoup_precompute, all at once
     dev = torch.device(device)
     return NttPlan(
         N=N, q=q, logN=logN, qinv_neg=qinv_neg, r2=r2, psi=psi,
         ninv=ninv, ninv_s=shoup_precompute(ninv, q),
         fwd_w=_words(fwd_w).to(dev),
-        fwd_ws=_words([shoup_precompute(w, q) for w in fwd_w]).to(dev),
+        fwd_ws=_words(shoup(fwd_w)).to(dev),
         inv_w=_words(inv_w).to(dev),
-        inv_ws=_words([shoup_precompute(w, q) for w in inv_w]).to(dev),
+        inv_ws=_words(shoup(inv_w)).to(dev),
         br=torch.from_numpy(br.astype(np.int64)).to(dev),
     )
 

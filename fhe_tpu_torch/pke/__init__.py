@@ -1,13 +1,14 @@
 """Public-key RNS schemes: parameters, the RLWE core with HYBRID and BV
 key switching, CKKS, BGV, BFV and the coefficient encodings, multiparty
-threshold decryption and joint keys, proxy re-encryption and advanced SHE
-(ports of fhe_tpu/pke/params.py, rlwe.py, ckks.py, bgv.py, bfv.py,
-encodings.py, multiparty.py, pre.py, advanced.py)."""
+threshold decryption and joint keys, proxy re-encryption, advanced SHE and
+CKKS bootstrapping (ports of fhe_tpu/pke/params.py, rlwe.py, ckks.py,
+bgv.py, bfv.py, encodings.py, multiparty.py, pre.py, advanced.py,
+bootstrap.py)."""
 
-from . import advanced, bfv, bgv, ckks, encodings, multiparty, params, pre, rlwe
+from . import advanced, bfv, bgv, bootstrap, ckks, encodings, multiparty, params, pre, rlwe
 from .bfv import BfvContext
 from .bgv import BgvContext
 from .ckks import CkksContext
 
-__all__ = ["BfvContext", "BgvContext", "CkksContext", "advanced", "bfv", "bgv", "ckks",
+__all__ = ["BfvContext", "BgvContext", "CkksContext", "advanced", "bfv", "bgv", "bootstrap", "ckks",
            "encodings", "multiparty", "params", "pre", "rlwe"]

@@ -10,8 +10,10 @@ reference calls COMPOSITESCALING for 32-bit words
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import functools
+import math
 
 from ..math import primes
 from ..lattice import stdparams
@@ -82,12 +84,54 @@ def _alternating_primes(center_bits: int, count: int, two_n: int,
     return out[:count]
 
 
+def _tracked_chain(scale_bits: int, cd: int, num_levels: int, two_n: int,
+                   used: set) -> list[int]:
+    """The level blocks of a chain whose FLEXIBLEAUTO scales stay near
+    2^scale_bits: from the top down, each block's product is the closest
+    a pair search finds to the scale it divides (S_{l-1} = S_l^2 / block),
+    so an error in one block is corrected by the next instead of squared
+    at every level.  Primes = 1 mod 2N within 3 bits of scale_bits / cd
+    (below 2^30); cd - 2 primes near S^(1/cd), then the best pair (at cd
+    = 1 the prime nearest S).
+    Returned bottom level first, as the chain stores them."""
+    width = scale_bits // cd
+    lo = max(two_n + 1, 1 << (width - 3))
+    hi = min(1 << (width + 3), 1 << 30)
+    pool = sorted(q for q in range(lo // two_n * two_n + 1, hi, two_n)
+                  if q >= lo and q not in used and primes.is_prime(q))
+    log2 = math.log2
+    target = float(scale_bits)                  # log2 of the running scale
+    blocks = []
+    for _ in range(num_levels):
+        block = []
+        for _ in range(cd - 2 if cd > 1 else 1):
+            block.append(min(pool, key=lambda c: abs(log2(c) - target / cd)))
+            pool.remove(block[-1])
+        if cd > 1:
+            rest = target - sum(log2(q) for q in block)
+            logs = [log2(q) for q in pool]
+            pairs = ((abs(la + logs[k] - rest), i, k) for i, la in enumerate(logs)
+                     for k in (bisect.bisect_left(logs, rest - la) - 1,
+                               bisect.bisect_left(logs, rest - la))
+                     if 0 <= k < len(pool) and k != i)
+            _, i, k = min(pairs, default=(None, None, None))
+            if i is None:
+                raise ValueError("prime chain exhausted")
+            block += [pool[i], pool[k]]
+            for q in block[-2:]:
+                pool.remove(q)
+        blocks.append(block)
+        target = 2 * target - sum(log2(q) for q in block)
+    return [q for block in reversed(blocks) for q in block]
+
+
 @functools.lru_cache(maxsize=None)
 def make_ckks_params(N: int = 1 << 13, num_levels: int = 8,
                      scale_bits: int = 28, first_bits: int = 30,
                      dnum: int = 3, num_special: int | None = None,
                      composite_degree: int = 1,
-                     security: str = "not_set") -> PkeParams:
+                     security: str = "not_set",
+                     track_scale: bool = False) -> PkeParams:
     """CKKS chain: q0 ~ 2^first_bits, q1..qL ~ 2^scale_bits (each = 1 mod
     2N so the negacyclic NTT exists), P of ~30-bit primes with |P| >=
     max part size (keyswitch-hybrid noise requirement).
@@ -95,7 +139,15 @@ def make_ckks_params(N: int = 1 << 13, num_levels: int = 8,
     composite_degree d > 1 (COMPOSITESCALING, for 32-bit limb words):
     every rescale level is a block of d limbs of ~scale_bits/d bits whose
     product is ~2^scale_bits; q0 is likewise a d-limb block of
-    ~first_bits/d bits.  Enables delta ~ 2^52 precision on uint32 RNS."""
+    ~first_bits/d bits.  Enables delta ~ 2^52 precision on uint32 RNS.
+
+    track_scale (the port's own; fhe_tpu has no such option): the level
+    blocks come from `_tracked_chain` instead of alternating around
+    2^(scale_bits/d).  Where primes = 1 mod 2N are sparse at that width
+    (26-bit limbs at N = 2^16 are ~2^21 apart), the alternating blocks
+    miss 2^scale_bits by up to a few percent, and FLEXIBLEAUTO squares
+    the miss at every level: at N = 2^16, 22 levels, the scale reaches
+    2^562 twelve levels down.  The default gives fhe_tpu's chain."""
     two_n = 2 * N
     cd = composite_degree
     used: set = set()
@@ -104,7 +156,10 @@ def make_ckks_params(N: int = 1 << 13, num_levels: int = 8,
     else:
         q0_block = _alternating_primes(first_bits // cd, cd, two_n, used)
     used.update(q0_block)
-    rest = _alternating_primes(scale_bits // cd, num_levels * cd, two_n, used)
+    if track_scale:
+        rest = _tracked_chain(scale_bits, cd, num_levels, two_n, used)
+    else:
+        rest = _alternating_primes(scale_bits // cd, num_levels * cd, two_n, used)
     used.update(rest)
     moduli = tuple(q0_block + rest)
     n_sp = num_special if num_special is not None else \

@@ -64,7 +64,7 @@ def test_ntt_kernels_match_plain(N, q_bits, cuda, gen):
         _same(i, x)
 
 
-@pytest.mark.parametrize("N", [1 << 16])
+@pytest.mark.parametrize("N", [1 << 17])
 def test_ntt_kernels_reject_unlisted_n(N, cuda):
     """An N outside csrc/ntt_shapes.h: ValueError before any launch."""
     plan = ntt.make_plan(N, primes.last_prime(27, 2 * N), cuda)
@@ -536,3 +536,56 @@ def test_flood_zero_shares_on_card_match_cpu(cuda):
     m = ckks._center(rns.to_bigint(ph), rns.modulus_product(ph.moduli))
     got = ckks.decode(m, p.N, ct.scale).real
     assert np.abs(got - z).max() < 5 * multiparty.MP_SD * np.sqrt(5 * p.N) / ct.scale
+
+
+@pytest.mark.parametrize("N,L", [(1 << 15, 58), (1 << 15, 64), (1 << 16, 1), (1 << 16, 3),
+                                 (1 << 16, 58), (1 << 16, 64)])
+def test_limb_stacked_ntt_kernels_at_bootstrap_width(N, L, cuda, gen):
+    """The bootstrapping set's Q u P (58 limbs) and kMaxLimbs (64) at N =
+    2^15 and at N = 2^16 (the split kernels), 1, 3 and SMs + 1 rows:
+    byte-equal to the plain versions, and the round trip."""
+    moduli = primes.ntt_primes(L, N, 1 << 30)
+    plan = rns.make_rns_plan(N, moduli, cuda)
+    tgen = torch.Generator(device=cuda).manual_seed(int(gen.integers(1 << 62)))
+    for rows in (1, 3, kntt.rows_per_block(N) * _sm_count(cuda) + 1):
+        x = (torch.randint(0, 1 << 62, (rows, L, N), generator=tgen, device=cuda) %
+             plan.q).to(torch.int32)
+        f = rns.ntt_forward(plan, x)
+        _same(f, rns.forward_plain(plan, x))
+        i = rns.ntt_inverse(plan, f)
+        _same(i, rns.inverse_plain(plan, f))
+        _same(i, x)
+
+
+def test_bootstrap_on_card_matches_cpu(cuda):
+    """The bootstrapping chain's shape (composite degree 2, 22 levels, dnum
+    = 4: 46 + 12 limbs, level scales tracked) at N = 2^11, keyed from one
+    seed on the CPU and on the card: the SPARSE_ENCAPSULATED level-budget
+    (3, 3) bootstrap gives the same ciphertext, decrypted within fhe_tpu's
+    1e-3, through the limb-stacked kernels only."""
+    from fhe_tpu_torch.pke import bootstrap, ckks, params
+    p = params.make_ckks_params(N=1 << 11, num_levels=22, scale_bits=52, composite_degree=2,
+                                first_bits=60, dnum=4, track_scale=True)
+    outs = []
+    for dev in ("cpu", cuda):
+        ctx = ckks.CkksContext(p, torch.device(dev))
+        rng = np.random.default_rng(9)
+        sk, pk = ctx.keygen(rng)
+        pre = bootstrap.setup(ctx, h=64, level_budget=(3, 3))
+        keys = bootstrap.keygen(ctx, sk, pre, rng, encapsulate_h=64)
+        z = rng.uniform(-0.4, 0.4, size=p.N // 2)
+        ct = ctx.encrypt(pk, z, rng)
+        drop = len(ct.moduli) - ctx.cd
+        ct = ckks.Ciphertext(rns.level_reduce(ct.c0, drop), rns.level_reduce(ct.c1, drop),
+                             ct.scale)
+        before = launch_counts()
+        out = bootstrap.eval_bootstrap(ctx, ct, pre, keys)
+        after = launch_counts()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        assert set(launched) == (set() if dev == "cpu" else
+                                 {"ntt_forward_limbs", "ntt_inverse_limbs"})
+        assert np.abs(ctx.decrypt(sk, out).real - z).max() < 1e-3
+        outs.append((out.scale, out.moduli, out.c0.data.cpu(), out.c1.data.cpu()))
+    assert outs[0][:2] == outs[1][:2]
+    _same(outs[1][2], outs[0][2])
+    _same(outs[1][3], outs[0][3])

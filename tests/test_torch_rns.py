@@ -178,10 +178,10 @@ def test_limb_stacked_ntt_checks():
     plan = rns.make_rns_plan(1024, make_params("TOY_RNS").moduli_rns)
     with pytest.raises(ValueError, match=r"\[\.\.\., 2, 1024\]"):
         rns.ntt_forward(plan, torch.zeros(3, 1024, dtype=torch.int32))
-    moduli = primes.ntt_primes(17, 1024, 1 << 27)
-    assert kntt.max_limbs() == 16
-    kntt.check_limbs(rns.make_rns_plan(1024, moduli[:16]))
-    with pytest.raises(ValueError, match="1 to 16 limbs, got 17"):
+    moduli = primes.ntt_primes(65, 1024, 1 << 30)
+    assert kntt.max_limbs() == 64
+    kntt.check_limbs(rns.make_rns_plan(1024, moduli[:64]))
+    with pytest.raises(ValueError, match="1 to 64 limbs, got 65"):
         kntt.check_limbs(rns.make_rns_plan(1024, moduli))
 
 
