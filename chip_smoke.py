@@ -179,16 +179,48 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    uniform(-0.4, 0.4) bootstrapped with the launch counters reset before
    and read after (the limb-stacked kernels only), decrypted within
    fhe_tpu's 1e-3, its levels, and one mul_rescale of it against z^2;
-   eval_bootstrap timed (CUDA events, median of 3) with the share of it
-   spent encoding plaintexts on the host, and split by a torch.profiler
-   trace; kernels 1-2 at every shape it
+   one warm eval_bootstrap timed (CUDA events) under a torch.profiler
+   trace that splits it, with the share of it spent encoding plaintexts
+   on the host; kernels 1-2 at every shape it
    launches them at byte-equal to their plain versions, beside their
    bound; then at N = 2^11 with the same chain shape, from one seed on the
-   CPU (in a child process, beside the work above) and on the card,
-   byte-equal: the encapsulated budget-(3, 3) bootstrap, the sparse one
-   (128 slots) and the iterative one (8 bits; its gain over the first at
-   least 4x);
-16. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+   CPU (in a child process started after the build, beside the card's
+   phases) and on the card, byte-equal: the encapsulated budget-(3, 3)
+   bootstrap, the sparse one (128 slots) and the iterative one (8 bits;
+   its gain over the first at least 4x);
+16. [fbt], CKKS functional bootstrapping (pke/fbt.py) on [boot]'s set,
+   dense secret and keys, keyed for the rotations [boot] lacks: the sparse
+   FBT of 2048 digits in Z_4 (1024 slots, d = 32; setup's K widened, see
+   FBT_RANGE_H) at an r computed from the depth, the schemelet's exact
+   product card against CPU at N = 2^16, multi-value bootstrapping of x^2
+   and 3x + 1 from one precompute (cold) and eval_fbt of 3x + 2 (warm:
+   launches counted, timed with CUDA events under a profiler trace, the
+   host-encode share), each 0 wrong of 2048; kernels 1-2 at its shapes not
+   checked above, and the single-modulus kernels at N = 2^16, against
+   their plain versions; at N = 2^11 ([boot]'s small ring and CPU child)
+   the dense FBT (2048 digits), the sparse one at d = 8 and the
+   multiprecision sign (p_in 16, p_digit 4), card against CPU byte for
+   byte and 0 wrong;
+17. [ss], CKKS <-> FHEW scheme switching (pke/schemeswitch.py), in a
+   process of its own on the card started beside [boot] and [fbt] (its
+   output printed after them), with the main path's STD128 context, secret
+   and key made again from SEED (their digest checked against the main
+   path's): at bench config 3,
+   eval_ckks_to_fhew of 8192 slots to STD128's (n, q) (its extraction
+   exact; the switch's wrong outputs within the Poisson bound of its own
+   noise, whose std must match the parameters'), and the compare of 8192
+   strictly unequal pairs at p = 8 (EvalSign from q_ks = 16 q: every wrong
+   sign past a margin of EvalSign's ladder, the first 128 wrong rows and
+   the first 64 byte-equal through the plain rotation, the whole EvalSign through
+   kernel 4 equal to kernel 3's); eval_fhew_to_ckks of [main]'s 4096 AND
+   outputs at N = 2^14 on a chain as deep as STD128's sine (SS_F2C_CONFIG:
+   rounding exactly, each slot within FHEW_CKKS_TOL of the sine of its
+   input's exact phase); each timed (CUDA events) with its host-encode share
+   and its launches counted; min over 4 with its argmin, max over 2,
+   compare and the _alt forms at N = 2^11 with TOY_RADIX (the wide
+   kernels), within fhe_tpu's test bounds; kernels 1-2 at the phase's new
+   shapes against their plain versions;
+18. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
    the NTT kernels, and their plain versions, with a cold L2 (each call
@@ -311,9 +343,11 @@ ADV_LOGISTIC = (-5.0, 5.0, 16)
 # a SPARSE_ENCAPSULATED helper of weight BOOT_H, r = 3 double angles, level
 # budget (3, 3); fhe_tpu's bound for this mode (tests/test_bootstrap.py:102);
 # the card-against-CPU ring (the same chain shape at N = 2^11) and the
-# sparse bootstrap's slots there (d = N / (2 slots) = 8, fhe_tpu's test's;
-# at 8 slots, d = 128, the encapsulated sparse bootstrap decrypts wrong:
-# ROADMAP queue 3)
+# sparse bootstrap's slots there (d = N / (2 slots) = 8, fhe_tpu's test's:
+# setup's sine range K = 36 sqrt(d) holds up to d = 8; at 8 slots, d = 128,
+# the partial sum's d I leaves it and the bootstrap decrypts wrong, in
+# fhe_tpu's composition too: ROADMAP queue 3); the CPU child's threads and
+# how long a phase waits for it
 BOOT_CONFIG = dict(N=1 << 16, num_levels=22, scale_bits=52, composite_degree=2, first_bits=60,
                    dnum=4, track_scale=True)
 BOOT_H = 64
@@ -324,6 +358,35 @@ BOOT_SMALL_N = 1 << 11
 BOOT_SPARSE_SLOTS = 128
 BOOT_CPU_THREADS = 4
 BOOT_CPU_WAIT_S = 900
+# the [fbt] phase: [boot]'s set, secret and keys; the sparse FBT's slots at
+# N = 2^16 (2048 digits, d = 32); the weight whose K (setup's sparse rule,
+# ((h + 1)/2 + 4) sqrt(d) = 385) covers d |I| for the weight-BOOT_H helper's
+# overflow integers up to |I| = 12 (at BOOT_H's own K = 204 a coefficient
+# fails from |I| = 7, probability ~0.005 each: ROADMAP queue 3); the LUTs'
+# plaintext modulus and the exponential series' largest degree (one
+# host-encoded plaintext a coefficient); the sparse FBT's d at N = 2^11
+# (BOOT_SPARSE_SLOTS' d, where setup's K holds); the LUTs, f: Z_4 -> Z_4
+FBT_SLOTS = 1024
+FBT_RANGE_H = 128
+FBT_P = 4
+FBT_MAX_DEG = 128
+BOOT_SPARSE_D = 8
+FBT_LUTS = {"(3x + 2) mod 4": lambda x: (3 * x + 2) % 4, "x^2 mod 4": lambda x: (x * x) % 4,
+            "(3x + 1) mod 4": lambda x: (3 * x + 1) % 4}
+# the [ss] phase: the FHEW -> CKKS chain's shape at N = 2^14 (its depth is
+# computed from STD128's sine): at bench config 3's 2^26 scale the
+# rescale's floor division (DropLastElementAndScale) leaves the lowest-
+# frequency slots off by ~N^1.5 |s(zeta)| / (2 pi scale) a rescale, ~0.016
+# at slot 0, which FHEW -> CKKS's sine amplifies past its 0.3 bound
+# (ROADMAP queue 3), so the chain is the bootstrapping set's shape: 2^52
+# at composite degree 2;
+# the min/max ring (tests/test_schemeswitch.py's chain at N = 2^11)
+SS_F2C_CONFIG = dict(N=1 << 14, scale_bits=52, composite_degree=2, first_bits=60, dnum=3,
+                     track_scale=True)
+# FHEW -> CKKS against sin(2 pi phi / q) of each input: the sine fit's 1e-7,
+# times ~4 a double angle (3 of them) and the 2 pi post-scale, is 4e-5
+FHEW_CKKS_TOL = 1e-3
+SS_SMALL_N = 1 << 11
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
@@ -588,20 +651,38 @@ def run_path(ctx, sk, key, bits, cts, impl):
     return outs, launches
 
 
-def main_path(dev):
-    """STD128 keygen, then each accumulator's run; the outputs must agree."""
+def std128_inputs(dev):
+    """[main]'s STD128 context, secret, bootstrap key, bits and their
+    ciphertexts, from SEED."""
     from fhe_tpu_torch import BinFheContext
-    t0 = time.perf_counter()
     ctx = BinFheContext.generate("STD128", device=dev)
     rng = np.random.default_rng(SEED)
     sk = ctx.key_gen(rng)
     key = ctx.bt_key_gen(sk, rng)
-    torch.cuda.synchronize()
-    print(f"[main] STD128 keygen (sk, ksk {tuple(key.ksk.a.shape)}, bsk "
-          f"{tuple(key.bsk.shape)}) on {dev}: {time.perf_counter() - t0:.3f} s")
     bits = tuple(rng.integers(0, 2, size=BATCH) for _ in range(3))
     cts = tuple(ctx.encrypt(sk, m, rng) for m in bits)
     cts += (ctx.encrypt(sk, bits[0][:1], rng), ctx.encrypt(sk, bits[1][:1], rng))
+    return ctx, sk, key, bits, cts
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes (the [ss] process checks that it holds
+    the main path's key and AND outputs)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def main_path(dev):
+    """STD128 keygen, then each accumulator's run; the outputs must agree."""
+    t0 = time.perf_counter()
+    ctx, sk, key, bits, cts = std128_inputs(dev)
+    torch.cuda.synchronize()
+    print(f"[main] STD128 keygen (sk, ksk {tuple(key.ksk.a.shape)}, bsk "
+          f"{tuple(key.bsk.shape)}) and the inputs' encryption on {dev}: "
+          f"{time.perf_counter() - t0:.3f} s")
     launches, first = {}, None
     for impl in IMPLS:
         outs, launches[impl] = run_path(ctx, sk, key, bits, cts, impl)
@@ -615,7 +696,8 @@ def main_path(dev):
     print(f"[main] peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     path_launches = {name: launches[None][name] for name in ("ntt_forward", "ntt_inverse")}
     path_launches.update({name: launches[impl][name] for impl, name in ACC_KERNEL.items()})
-    return ctx, sk, key, cts, path_launches
+    return ctx, sk, key, cts, path_launches, digest(key.bsk, key.ksk.a, key.ksk.b, first["AND"].a,
+                                                    first["AND"].b)
 
 
 def comb_mask(ct1, ct2) -> np.ndarray:
@@ -1812,6 +1894,11 @@ def ckks_ops(ctx, rng, sk, pk, ct, z, w):
     return out, ct2, z2
 
 
+# (kernel, shape, basis) of the limb-stacked launches limb_kernels_at has held
+# to the plain versions and timed in this run
+LIMB_SHAPES_CHECKED: set = set()
+
+
 def limb_kernels_at(tag: str, call: str, dev, shapes: collections.Counter, dev_ms: dict,
                     errors: Errors, int_peak: float, card: str) -> None:
     """Kernels 1-2 at every (kernel, shape, basis) a call launched:
@@ -1824,7 +1911,14 @@ def limb_kernels_at(tag: str, call: str, dev, shapes: collections.Counter, dev_m
     gen = np.random.default_rng(SEED + 6)
     ops = {"ntt_forward_limbs": (rns.ntt_forward, rns.forward_plain),
            "ntt_inverse_limbs": (rns.ntt_inverse, rns.inverse_plain)}
+    seen = {k: n for k, n in shapes.items() if k in LIMB_SHAPES_CHECKED}
+    if seen:
+        print(f"{tag} kernels 1-2 at {len(seen)} of the {call}'s {len(shapes)} shapes: checked "
+              f"and timed above in this run ({sum(seen.values())} of its launches)")
+    LIMB_SHAPES_CHECKED.update(shapes)
     for (kernel, shape, moduli), n in sorted(shapes.items()):
+        if (kernel, shape, moduli) in seen:
+            continue
         rows, L, N = shape
         plan = rns.make_rns_plan(N, moduli, dev)
         x = torch.stack([_residues(gen, q, (rows, N), dev) for q in moduli], dim=1)
@@ -1858,6 +1952,13 @@ def kernel_trace(fn, reps: int) -> list[dict]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return trace_kernels(prof)
+
+
+def trace_kernels(prof) -> list[dict]:
+    """The device kernels of a finished torch.profiler trace (see
+    kernel_trace)."""
+    import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/trace.json"
         prof.export_chrome_trace(path)
@@ -1868,12 +1969,13 @@ def kernel_trace(fn, reps: int) -> list[dict]:
 
 
 def device_split(tag: str, what: str, fn, reps: int, wall_ms: float,
-                 shapes: collections.Counter, card: str) -> dict:
-    """Prints one call of fn split, from kernel_trace, into kernels 1-2, the
-    other kernels (the int64 glue) and the rest of its CUDA-event time
-    wall_ms, where the card waits on the host; returns the limb kernels'
-    median device ms a launch by (kernel, shape, basis) of `shapes`."""
-    ks = kernel_trace(fn, reps)
+                 shapes: collections.Counter, card: str, ks: list | None = None) -> dict:
+    """Prints one call of fn split, from kernel_trace (or the trace events
+    ks of reps calls already taken), into kernels 1-2, the other kernels
+    (the int64 glue) and the rest of its CUDA-event time wall_ms, where the
+    card waits on the host; returns the limb kernels' median device ms a
+    launch by (kernel, shape, basis) of `shapes`."""
+    ks = kernel_trace(fn, reps) if ks is None else ks
     if not ks:
         print(f"{tag} {what}: {wall_ms:.3f} ms; the profiler trace holds no kernel: the device "
               f"split is not measured  ({card})")
@@ -1882,7 +1984,7 @@ def device_split(tag: str, what: str, fn, reps: int, wall_ms: float,
     glue = sum(k["us"] for k in ks if not is_limb(k)) / reps / 1e3
     n_glue = sum(1 for k in ks if not is_limb(k)) / reps
     rest = wall_ms - limb - glue
-    print(f"{tag} {what}: {wall_ms:.3f} ms (CUDA events, median); device time a call from a "
+    print(f"{tag} {what}: {wall_ms:.3f} ms (CUDA events); device time a call from a "
           f"torch.profiler trace of {reps} calls: kernels 1-2 {limb:.4f} ms ({limb / wall_ms:.3f})"
           f", the other {n_glue:g} kernels (the int64 glue) {glue:.4f} ms "
           f"({glue / wall_ms:.3f}), no kernel running {rest:.4f} ms ({rest / wall_ms:.3f})  "
@@ -2060,10 +2162,11 @@ def rotated_slots(m: np.ndarray, r: int) -> np.ndarray:
     return m[((2 * i + 1) * pow(5, r, 2 * N) % (2 * N) - 1) // 2]
 
 
-def counted(tag: str, call: str, fn):
+def counted(tag: str, call: str, fn, limb_only: bool = True):
     """One call of fn with the launch counters reset before and read
-    after: (its result, launches, (kernel, shape, basis) counts); fails
-    unless it launched the limb-stacked kernels only, each at least once."""
+    after: (its result, launches, (kernel, shape, basis) counts of the
+    limb-stacked launches); with limb_only, fails unless it launched the
+    limb-stacked kernels only, each at least once."""
     from fhe_tpu_torch import kernels
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -2071,10 +2174,15 @@ def counted(tag: str, call: str, fn):
         out = fn()
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    others = {k: v for k, v in launches.items() if k not in LIMB_KERNELS and v}
-    if others or not all(launches[k] for k in LIMB_KERNELS):
-        fail(f"{tag} {call} launches {launches}: the limb-stacked kernels only, each at least once")
-    print(f"{tag} {call} launches: {dict(launches)} (kernels 3-5 and the single-modulus NTTs: 0)")
+    if limb_only:
+        others = {k: v for k, v in launches.items() if k not in LIMB_KERNELS and v}
+        if others or not all(launches[k] for k in LIMB_KERNELS):
+            fail(f"{tag} {call} launches {launches}: the limb-stacked kernels only, each at least "
+                 f"once")
+        print(f"{tag} {call} launches: {dict(launches)} (kernels 3-5 and the single-modulus NTTs:"
+              f" 0)")
+    else:
+        print(f"{tag} {call} launches: { {k: v for k, v in launches.items() if v} }")
     for (kernel, shape, moduli), n in sorted(shapes.items()):
         print(f"{tag} {call}: {kernel} {list(shape)} x {n}")
     return out, launches, shapes
@@ -2750,46 +2858,111 @@ def boot_small(dev) -> dict:
     return out
 
 
-def boot_small_child(path: str) -> int:
-    """chip_smoke.py --boot-cpu PATH: boot_small on the CPU with
-    BOOT_CPU_THREADS threads, saved to PATH (the [boot] phase runs it beside
-    its N = 2^16 work on the card)."""
+def small_child(out_dir: str) -> int:
+    """chip_smoke.py --small-cpu DIR: boot_small, then fbt_small, on the CPU
+    with BOOT_CPU_THREADS threads, each saved to DIR as it is done (boot.pt,
+    fbt.pt); the [boot] and [fbt] phases compare them with the card's."""
+    import os
     torch.set_num_threads(BOOT_CPU_THREADS)
-    torch.save(boot_small("cpu"), path)
+    for kind, run in (("boot", boot_small), ("fbt", fbt_small)):
+        path = os.path.join(out_dir, f"{kind}.pt")
+        torch.save(run("cpu"), path + ".part")
+        os.replace(path + ".part", path)
     return 0
 
 
 @contextlib.contextmanager
-def boot_small_on_cpu():
-    """Starts boot_small on the CPU in a child process; yields a function
-    that waits for it (at most BOOT_CPU_WAIT_S) and returns its result.
-    The child is killed on the way out if it is still running."""
+def child_process(flag: str):
+    """Starts `chip_smoke.py flag DIR` with its output in DIR/child.log;
+    yields (the process, DIR, its start on the host clock).  The process is
+    killed on the way out if it is still running."""
     import os
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "boot_small_cpu.pt")
-        t0 = time.perf_counter()
-        child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--boot-cpu", path],
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        with open(os.path.join(tmp, "child.log"), "w") as log:
+            t0 = time.perf_counter()
+            child = subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, tmp],
+                                     stdout=log, stderr=subprocess.STDOUT)
+            try:
+                yield child, tmp, t0
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
 
-        def result():
-            out, _ = child.communicate(timeout=BOOT_CPU_WAIT_S)
-            if child.returncode != 0:
-                fail(f"[boot] the CPU run at N = {BOOT_SMALL_N} failed "
-                     f"({child.returncode}):\n{out}")
+
+def child_log(tmp: str) -> str:
+    import os
+    with open(os.path.join(tmp, "child.log")) as f:
+        return f.read()
+
+
+@contextlib.contextmanager
+def small_on_cpu():
+    """Starts `chip_smoke.py --small-cpu DIR` (the N = 2^11 runs on the CPU,
+    small_child), which works beside the card's phases; yields wait(tag,
+    kind), which waits for its `kind` result (at most BOOT_CPU_WAIT_S) and
+    returns it and the seconds since the start."""
+    import os
+    with child_process("--small-cpu") as (child, tmp, t0):
+        def wait(tag: str, kind: str):
+            path = os.path.join(tmp, f"{kind}.pt")
+            deadline = time.perf_counter() + BOOT_CPU_WAIT_S
+            while not os.path.exists(path):
+                if child.poll() is not None and not os.path.exists(path):
+                    fail(f"{tag} the CPU run at N = {BOOT_SMALL_N} failed "
+                         f"({child.returncode}):\n{child_log(tmp)[-4000:]}")
+                if time.perf_counter() > deadline:
+                    fail(f"{tag} the CPU run at N = {BOOT_SMALL_N} took over {BOOT_CPU_WAIT_S} s")
+                time.sleep(0.5)
             return torch.load(path, weights_only=False), time.perf_counter() - t0
-        try:
-            yield result
-        finally:
-            if child.poll() is None:
-                child.kill()
-                child.wait()
+        yield wait
 
 
-def boot_phase(dev, errors: Errors, card: str) -> dict:
+def ss_child(out_dir: str) -> int:
+    """chip_smoke.py --ss DIR: the [ss] phase in a process of its own on the
+    card, which the parent starts beside [boot] and [fbt] (both wait on the
+    host most of the time), on [main]'s STD128 key and AND outputs, made
+    again from SEED; saves its launches by kernel, its kernels' largest
+    differences from their plain versions and the digest of that key and
+    those outputs (the parent checks it against its own) to DIR/ss.pt."""
+    import os
+    torch.set_num_threads(2)
+    dev = torch.device("cuda", 0)
+    ctx, sk, key, bits, cts = std128_inputs(dev)
+    and_out = ctx.eval_bin_gate(key, "AND", cts[0], cts[1])
+    errors = Errors()
+    launches = ss_phase(dev, errors, card_line(), ctx, sk, key, and_out, bits[0] & bits[1])
+    torch.save({"launches": dict(launches), "errors": errors.max,
+                "digest": digest(key.bsk, key.ksk.a, key.ksk.b, and_out.a, and_out.b)},
+               os.path.join(out_dir, "ss.pt"))
+    return 0
+
+
+@contextlib.contextmanager
+def ss_process():
+    """Starts `chip_smoke.py --ss DIR` (ss_child); yields wait(), which
+    waits for it (at most BOOT_CPU_WAIT_S), prints its output and returns
+    its result and seconds."""
+    import os
+    with child_process("--ss") as (child, tmp, t0):
+        def wait():
+            try:
+                rc = child.wait(timeout=BOOT_CPU_WAIT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"[ss] its process took over {BOOT_CPU_WAIT_S} s")
+            print(child_log(tmp), end="")
+            if rc != 0:
+                fail(f"[ss] its process failed ({rc})")
+            return torch.load(os.path.join(tmp, "ss.pt"), weights_only=False), \
+                time.perf_counter() - t0
+        yield wait
+
+
+def boot_phase(dev, errors: Errors, card: str, small_cpu):
     """The [boot] phase: CKKS bootstrapping (pke/bootstrap.py) at the
     128-bit full-slot set on the card; returns the launches of one counted
-    eval_bootstrap."""
+    eval_bootstrap and the set's context and keys."""
     from fhe_tpu_torch.lattice import stdparams
     from fhe_tpu_torch.pke import ckks, params
     t_phase = time.perf_counter()
@@ -2805,13 +2978,12 @@ def boot_phase(dev, errors: Errors, card: str) -> dict:
           f"passes; level scales 2^{min(scales):.4f} to 2^{max(scales):.4f}")
     print(f"{tag} chain, log2 of each limb: Q {[round(math.log2(q), 3) for q in p.moduli]}; "
           f"P {[round(math.log2(q), 3) for q in p.special_mods]}")
-    with boot_small_on_cpu() as cpu_result:
-        launches = boot_full(dev, errors, card, p)
-        on_card = boot_small(dev)
-        on_cpu, cpu_s = cpu_result()
+    launches, state = boot_full(dev, errors, card, p)
+    on_card = boot_small(dev)
+    on_cpu, cpu_s = small_cpu(tag, "boot")
     print(f"{tag} N = {BOOT_SMALL_N}, the same chain shape: keys and the bootstraps below "
-          f"{cpu_s:.1f} s on the CPU ({BOOT_CPU_THREADS} threads, in a child process beside the "
-          f"work above; host clock)")
+          f"on the CPU ({BOOT_CPU_THREADS} threads, in a child process started after the build, "
+          f"beside the card's phases; ready {cpu_s:.1f} s after its start, host clock)")
     errs = {}
     for what, (c0, c1, moduli, scale, slots, want) in on_card.items():
         w0, w1, w_moduli, w_scale = on_cpu[what][:4]
@@ -2830,13 +3002,14 @@ def boot_phase(dev, errors: Errors, card: str) -> dict:
     if not (e1 > 5e-6 and e2 < e1 / 4):
         fail(f"{tag} the iterative bootstrap gains too little: {e1} -> {e2}")
     print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
-    return launches
+    return launches, state
 
 
-def boot_full(dev, errors: Errors, card: str, p) -> dict:
-    """[boot] at the full set p on the card: keys, one bootstrap checked,
-    one counted, timed, traced, kernels 1-2 at its shapes; returns the
-    counted bootstrap's launches."""
+def boot_full(dev, errors: Errors, card: str, p):
+    """[boot] at the full set p on the card: keys, one bootstrap checked
+    and counted, one timed and traced, kernels 1-2 at its shapes; returns
+    the counted bootstrap's launches and (context, sk, pk, keys) for
+    [fbt]."""
     from fhe_tpu_torch.pke import bootstrap, ckks
     tag = "[boot]"
     ctx = ckks.CkksContext(p, dev)
@@ -2886,16 +3059,638 @@ def boot_full(dev, errors: Errors, card: str, p) -> dict:
     boot_error(tag, "mul_rescale of the output against z^2", ctx.decrypt(sk, sq).real, z * z,
                BOOT_TOL)
 
-    with host_encode_clock() as host_s:
-        ms = time_ms(boot, reps=3)
-    share = host_s[0] * 1e3 / (3 * ms)
-    print(f"{tag} eval_bootstrap batch 1: {ms:.3f} ms (CUDA events, median of 3, warmed); "
-          f"{host_s[0] / 3:.3f} s a call ({share:.3f} of it) encoding plaintexts on the host "
-          f"(ckks.encode and rlwe.signed_to_rns: {sum(cts_d) + sum(stc_d)} diagonals and the "
-          f"sine's constants; host clock)  ({card})")
-    dev_ms = device_split(tag, "eval_bootstrap batch 1", boot, 1, ms, shapes, card)
+    what = "eval_bootstrap batch 1"
+    _, ms, ks = timed_traced(tag, what, boot, card,
+                             f"{sum(cts_d) + sum(stc_d)} diagonals and the sine's constants")
+    dev_ms = device_split(tag, what, boot, 1, ms, shapes, card, ks=ks)
     limb_kernels_at(tag, "bootstrap", dev, shapes, dev_ms, errors, int_multiply_peak(dev), card)
+    return {name: launches[name] for name in LIMB_KERNELS}, (ctx, sk, pk, keys)
+
+
+def timed_traced(tag: str, what: str, fn, card: str, encodes: str):
+    """One warm call of fn, timed with CUDA events inside a torch.profiler
+    trace and the host-encode clock: prints its time and the share of it
+    the host spends encoding plaintexts; returns (the output, its ms, the
+    trace's kernels for device_split)."""
+    from torch.profiler import ProfilerActivity, profile
+    with host_encode_clock() as host_s:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ms, out = timed_once(fn)
+    print(f"{tag} {what}: {ms:.3f} ms (CUDA events, one warm call, under the profiler); "
+          f"{host_s[0]:.3f} s of it ({host_s[0] * 1e3 / ms:.3f}) encoding plaintexts on the host "
+          f"(ckks.encode and rlwe.signed_to_rns: {encodes}; host clock)  ({card})")
+    return out, ms, trace_kernels(prof)
+
+
+def fbt_r(tag: str, what: str, K: int, levels: int) -> int:
+    """R for an FBT of the exponential's range K on a chain of `levels`
+    levels: for each r, the series' degree (fbt._exp_cheb_coeffs) and the
+    depth get_fbt_depth's formula gives with that degree (the raise's
+    CoeffsToSlots 1, Paterson-Stockmeyer ceil(log2 deg) + 2, r squarings,
+    the power basis of a p = 4 order-2 LUT 3, its series 1, SlotsToCoeffs
+    1); the least r whose depth leaves a level to spare and whose degree
+    is at most FBT_MAX_DEG (one host-encoded plaintext a coefficient)."""
+    from fhe_tpu_torch.pke import fbt
+    herm_deg = FBT_P + FBT_P // 2                      # order 2
+    pow_depth = max(1, math.ceil(math.log2(herm_deg)))
+    rows = []
+    for r in range(10):
+        try:
+            deg = len(fbt._exp_cheb_coeffs(K, r)) - 1
+        except ValueError:
+            continue
+        depth = 1 + max(1, math.ceil(math.log2(max(2, deg)))) + 2 + r + pow_depth + 1 + 1
+        rows.append((r, deg, depth))
+    fits = [r for r, deg, depth in rows if depth <= levels - 1 and deg <= FBT_MAX_DEG]
+    if not fits:
+        fail(f"{tag} {what}: no r fits {levels} levels: {rows}")
+    print(f"{tag} {what}: K = {K}; (r, exp series degree, depth) {rows}; R = {fits[0]}, the "
+          f"least r of depth <= {levels - 1} and degree <= {FBT_MAX_DEG}")
+    return fits[0]
+
+
+def fbt_big_q(ctx) -> int:
+    """The schemelet's input modulus: 2^3 times q0's power of two, as
+    fhe_tpu's tests put 2^33 over a 30-bit q0."""
+    from fhe_tpu_torch.pke import bootstrap
+    return 1 << (bootstrap._q0(ctx).bit_length() + 2)
+
+
+def fbt_lut(ctx, sk, out, big_q: int, stride: int) -> np.ndarray:
+    """The LUT digits of an FBT output: switched to big_q, decrypted mod 4,
+    every stride-th coefficient."""
+    from fhe_tpu_torch.pke import fbt
+    return fbt.decrypt_coeff(ctx, sk, fbt.convert_ckks_to_rlwe(
+        ctx, out, big_q, target_delta=big_q / FBT_P), FBT_P)[::stride]
+
+
+def fbt_check(tag: str, what: str, got: np.ndarray, want: np.ndarray) -> None:
+    wrong = int((got != want).sum())
+    print(f"{tag} {what}: {wrong} wrong of {len(want)} (decrypt_coeff)")
+    if wrong:
+        fail(f"{tag} {what}: {wrong} wrong LUT outputs")
+
+
+def fbt_small(dev) -> dict:
+    """The N = 2^11 ring of the [boot] chain's shape on dev, keyed from one
+    seed (a dense secret, the weight-BOOT_H helper): the dense FBT on full
+    packing (N digits), the sparse FBT at d = BOOT_SPARSE_D (N / d digits)
+    and the multiprecision sign (p_in = 16, p_digit = 4, Q = 4 big_q):
+    {what: (c0, c1 on the CPU or host integers, moduli or q, scale or
+    delta, decrypted, expected)}."""
+    from fhe_tpu_torch.pke import ckks, fbt, params
+    p = params.make_ckks_params(**dict(BOOT_CONFIG, N=BOOT_SMALL_N))
+    ctx = ckks.CkksContext(p, torch.device(dev))
+    N, levels = p.N, len(p.moduli) // p.composite_degree - 1
+    rng = np.random.default_rng(SEED + 52)
+    sk, _ = ctx.keygen(rng)
+    big_q = fbt_big_q(ctx)
+    func = FBT_LUTS["(3x + 2) mod 4"]
+    coeffs = fbt.get_hermite_trig_coefficients(func, FBT_P, 2)
+    keep = lambda o, got, want: (o.c0.data.cpu(), o.c1.data.cpu(), o.moduli, o.scale, got, want)
+    out = {}
+    K = (BOOT_H + 1) // 2 + 4
+    pre = fbt.setup(ctx, h=BOOT_H, r=fbt_r("[fbt]", f"N = {N} dense", K, levels))
+    keys = fbt.keygen(ctx, sk, pre, rng, encapsulate_h=BOOT_H)
+    msg = rng.integers(0, FBT_P, size=N)
+    ct = fbt.convert_rlwe_to_ckks(ctx, fbt.encrypt_coeff(ctx, sk, msg, big_q, FBT_P, rng))
+    o = fbt.eval_fbt(ctx, ct, coeffs, pre, keys)
+    out[f"dense eval_fbt, {N} digits"] = keep(o, fbt_lut(ctx, sk, o, big_q, 1), func(msg))
+    d = BOOT_SPARSE_D
+    K_s = int(math.ceil(K * math.sqrt(d)))
+    pre_s = fbt.setup(ctx, h=BOOT_H, r=fbt_r("[fbt]", f"N = {N} sparse, d = {d}", K_s, levels),
+                      slots=N // 2 // d)
+    keys_s = fbt.keygen(ctx, sk, pre_s, rng, encapsulate_h=BOOT_H)
+    vals = rng.integers(0, FBT_P, size=N // d)
+    msg = np.zeros(N, dtype=np.int64)
+    msg[::d] = vals
+    ct = fbt.convert_rlwe_to_ckks(ctx, fbt.encrypt_coeff(ctx, sk, msg, big_q, FBT_P, rng),
+                                  num_values=N // d)
+    o = fbt.eval_fbt(ctx, ct, coeffs, pre_s, keys_s)
+    out[f"sparse eval_fbt, d = {d}, {N // d} digits"] = keep(o, fbt_lut(ctx, sk, o, big_q, d),
+                                                             func(vals))
+    vals = rng.integers(0, 16, size=N)
+    ct_big = fbt.encrypt_coeff(ctx, sk, vals, big_q << 2, 16, rng)
+    sgn = fbt.eval_sign_multiprecision(ctx, ct_big, 16, 4, big_q, pre, keys, order=2)
+    out[f"eval_sign_multiprecision, p_in 16, p_digit 4, {N} values"] = (
+        sgn.c0, sgn.c1, sgn.q, sgn.delta, fbt.decrypt_coeff(ctx, sk, sgn, 2),
+        (vals >= 8).astype(np.int64))
+    return out
+
+
+def single_ntt_2_16(dev, errors: Errors, card: str) -> None:
+    """The single-modulus kernels 1-2 at N = 2^16 (the split kernels as one
+    limb) at [3, 65536] under the schemelet product's first prime: byte-
+    equal to their plain versions, 10 launches back to back, the plain
+    time and the bound."""
+    from fhe_tpu_torch.math import ntt
+    from fhe_tpu_torch.pke import fbt
+    plan = ntt.make_plan(1 << 16, fbt.mul_primes(1)[0], dev)
+    x = _residues(np.random.default_rng(SEED + 7), plan.q, (3, plan.N), dev)
+    int_peak = int_multiply_peak(dev)
+    for name, fn, plain, extra in (
+            ("ntt_forward", ntt.ntt_forward, ntt.forward_butterfly, 0),
+            ("ntt_inverse", ntt.ntt_inverse, ntt.inverse_butterfly, plan.N)):
+        errors.compare(name, fn(plan, x), plain(plan, x), f"[fbt] {name} [3, 65536]")
+        ms = time_ms(lambda: [fn(plan, x) for _ in range(10)], reps=5) / 10
+        p_ms = time_ms(lambda: plain(plan, x), reps=3)
+        muls = 3 * (plan.N // 2 * plan.logN + extra) * 3
+        b_ms, b_by = bound(_nbytes(x, x, plan.fwd_w, plan.fwd_ws), muls, int_peak)
+        print(f"[fbt] {name} single-modulus [3, 65536] (q = {plan.q}): {ms:.4f} ms a launch 10 "
+              f"back to back (with the host's issue), at {b_ms / ms:.3f} of the bound; plain "
+              f"{p_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}  ({card})")
+
+
+def fbt_phase(dev, errors: Errors, card: str, boot_state, small_cpu) -> dict:
+    """The [fbt] phase: CKKS functional bootstrapping (pke/fbt.py) on
+    [boot]'s set, secret and keys at full width, and at N = 2^11 card
+    against CPU; returns the launches of the counted eval_fbt."""
+    t_phase = time.perf_counter()
+    tag = "[fbt]"
+    launches = fbt_full(dev, errors, card, *boot_state)
+    on_card = fbt_small(dev)
+    on_cpu, cpu_s = small_cpu(tag, "fbt")
+    print(f"{tag} N = {BOOT_SMALL_N}: keys and the FBTs below on the CPU ({BOOT_CPU_THREADS} "
+          f"threads, after [boot]'s in the same child process; ready {cpu_s:.1f} s after its "
+          f"start, host clock)")
+    for what, (c0, c1, moduli, scale, got, want) in on_card.items():
+        w0, w1, w_moduli, w_scale = on_cpu[what][:4]
+        same = (torch.equal(c0, w0) and torch.equal(c1, w1)) if isinstance(c0, torch.Tensor) \
+            else [int(x) for x in c0] + [int(x) for x in c1] == [int(x) for x in w0] + \
+            [int(x) for x in w1]
+        if (moduli, scale) != (w_moduli, w_scale) or not same:
+            fail(f"{tag} N = {BOOT_SMALL_N} {what}: the card's output differs from the CPU's")
+        print(f"{tag} N = {BOOT_SMALL_N} {what}, card against CPU, same seed: byte-equal")
+        fbt_check(tag, f"N = {BOOT_SMALL_N} {what}", got, want)
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return launches
+
+
+def fbt_full(dev, errors: Errors, card: str, ctx, sk, pk, keys) -> dict:
+    """[fbt] at N = 2^16: the sparse FBT with FBT_SLOTS slots (d = N / (2
+    slots)) on [boot]'s context, secret and keys, keyed for the rotations
+    [boot] lacks; the three LUTs, the schemelet product card against CPU,
+    one eval_fbt counted, timed and traced, kernels 1-2 at its shapes;
+    returns its launches."""
+    from fhe_tpu_torch.pke import fbt
+    tag = "[fbt]"
+    p = ctx.params
+    N, n = p.N, p.N // 2
+    levels = len(p.moduli) // p.composite_degree - 1
+    d = n // FBT_SLOTS
+    stride = N // (2 * FBT_SLOTS)
+    K = int(math.ceil(((FBT_RANGE_H + 1) // 2 + 4) * math.sqrt(d)))
+    t0 = time.perf_counter()
+    pre = fbt.setup(ctx, h=FBT_RANGE_H, r=fbt_r(tag, f"N = {N}, d = {d}", K, levels),
+                    slots=FBT_SLOTS)
+    print(f"{tag} setup (host, numpy): {time.perf_counter() - t0:.3f} s; {FBT_SLOTS} slots, "
+          f"{2 * FBT_SLOTS} digits (d = {d}), K = {pre.K} (setup's h = {FBT_RANGE_H}: the sparse "
+          f"rule K = ((h + 1)/2 + 4) sqrt(d) at the helper's own h = {BOOT_H} gives "
+          f"{int(math.ceil(((BOOT_H + 1) // 2 + 4) * math.sqrt(d)))}, which d |I| passes with "
+          f"|I| >= 7, ROADMAP queue 3), exp series degree {len(pre.exp_coeffs) - 1}, r = {pre.r}, "
+          f"{len(pre.rot_indices)} rotation keys")
+    rng = np.random.default_rng(SEED + 53)
+    missing = sorted(set(pre.rot_indices) - set(keys["rot"]))
+    t0 = time.perf_counter()
+    fkeys = dict(keys, rot={**keys["rot"], **ctx.rotation_key_gen(sk, missing, rng)})
+    torch.cuda.synchronize()
+    print(f"{tag} {len(missing)} rotation keys [boot] lacks, keyed on the card: "
+          f"{time.perf_counter() - t0:.3f} s (host clock); torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    big_q = fbt_big_q(ctx)
+    vals = rng.integers(0, FBT_P, size=2 * FBT_SLOTS)
+    msg = np.zeros(N, dtype=np.int64)
+    msg[::stride] = vals
+    t0 = time.perf_counter()
+    ct_rlwe = fbt.encrypt_coeff(ctx, sk, msg, big_q, FBT_P, rng)
+    print(f"{tag} encrypt_coeff of {2 * FBT_SLOTS} digits in Z_{FBT_P} under big_q = "
+          f"2^{big_q.bit_length() - 1} (q0 ~2^{math.log2(fbt._q0(ctx)):.2f}), one every "
+          f"{stride}th coefficient: {time.perf_counter() - t0:.3f} s (host clock)")
+    s = np.asarray(sk.s_signed.cpu().numpy(), dtype=object)
+    mods = fbt.mul_primes(3)
+    t0 = time.perf_counter()
+    with limb_launch_shapes() as product_shapes:
+        on_card = fbt._negacyclic_mul(ct_rlwe.c1, s, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = fbt._negacyclic_mul(ct_rlwe.c1, s, "cpu")
+    if [int(x) for x in on_card] != [int(x) for x in on_cpu]:
+        fail(f"{tag} the schemelet's exact product differs between the card and the CPU")
+    print(f"{tag} schemelet product c1 s at N = {N} (NTTs over {len(mods)} primes q = 1 mod 2^17,"
+          f" centred CRT): card {card_s:.3f} s, CPU {time.perf_counter() - t0:.3f} s (host "
+          f"clock), byte-equal")
+    fbt_check(tag, "decrypt_coeff of the input", fbt.decrypt_coeff(ctx, sk, ct_rlwe, FBT_P)[
+        ::stride], vals)
+    ct = fbt.convert_rlwe_to_ckks(ctx, ct_rlwe, num_values=2 * FBT_SLOTS)
+
+    # multi-value bootstrapping, the first (cold) calls
+    mvb = {w: FBT_LUTS[w] for w in ("x^2 mod 4", "(3x + 1) mod 4")}
+    cs = {w: fbt.get_hermite_trig_coefficients(f, FBT_P, 2) for w, f in mvb.items()}
+    deg = max(len(c) for c in cs.values()) - 1
+    t0 = time.perf_counter()
+    sp, mvb_launches, mvb_shapes = counted(
+        tag, "eval_mvb_precompute", lambda: fbt.eval_mvb_precompute(ctx, ct, pre, fkeys, deg))
+    print(f"{tag} eval_mvb_precompute (cold; power basis to degree {deg}): "
+          f"{time.perf_counter() - t0:.3f} s (host clock)")
+    for w, c in cs.items():
+        t0 = time.perf_counter()
+        out = fbt.eval_hom_decoding(ctx, fbt.eval_mvb_no_decoding(ctx, sp, c, pre, fkeys), pre,
+                                    fkeys)
+        print(f"{tag} MVB {w}: series and SlotsToCoeffs {time.perf_counter() - t0:.3f} s (host "
+              f"clock)")
+        fbt_check(tag, f"MVB {w} at N = {N}", fbt_lut(ctx, sk, out, big_q, stride),
+                  mvb[w](vals))
+    del sp
+    func = FBT_LUTS["(3x + 2) mod 4"]
+    coeffs = fbt.get_hermite_trig_coefficients(func, FBT_P, 2)
+    what = "eval_fbt (3x + 2) mod 4"
+    run = lambda: fbt.eval_fbt(ctx, ct, coeffs, pre, fkeys)
+    (out, ms, ks), launches, shapes = counted(tag, what, lambda: timed_traced(
+        tag, what, run, card, f"{2 * FBT_SLOTS} rectangular diagonals and the series' constants"))
+    dev_ms = device_split(tag, what, run, 1, ms, shapes, card, ks=ks)
+    fbt_check(tag, f"eval_fbt (3x + 2) mod 4 at N = {N}", fbt_lut(ctx, sk, out, big_q, stride),
+              func(vals))
+    mvb_shapes.update(shapes)
+    mvb_shapes.update(product_shapes)
+    limb_kernels_at(tag, "eval_fbt, MVB or schemelet product", dev, mvb_shapes, dev_ms, errors,
+                    int_multiply_peak(dev), card)
+    single_ntt_2_16(dev, errors, card)
+    del fkeys
     return {name: launches[name] for name in LIMB_KERNELS}
+
+
+class RecordingSign:
+    """A BinFheContext whose eval_sign keeps its input (the switched LWE
+    ciphertexts) for the checks after a compare."""
+
+    def __init__(self, ctx):
+        self.ctx, self.params, self.seen = ctx, ctx.params, None
+
+    def eval_sign(self, key, cts, scheme_switch: bool = False):
+        self.seen = cts
+        return self.ctx.eval_sign(key, cts, scheme_switch=scheme_switch)
+
+
+def lwe_rows(ct, rows):
+    return dataclasses.replace(ct, a=ct.a[rows], b=ct.b[rows])
+
+
+def lwe_error(sk, ct, value) -> torch.Tensor:
+    """Signed phase of ct minus value (a tensor of the expected phases) in
+    (-modulus/2, modulus/2]."""
+    s = sk.s.to(ct.a.device, torch.int64)
+    mod = ct.modulus
+    ph = (ct.b.to(torch.int64) - (ct.a.to(torch.int64) * s).sum(-1)) % mod
+    return (ph - value + mod // 2) % mod - mod // 2
+
+
+def sign_margins(ctx_f, sk_f, key_f, ct, negative: torch.Tensor) -> dict:
+    """EvalSign's ladder (funcboot.eval_sign: floors from ct's modulus down
+    to q, then the sign bootstrap) run stage by stage on the rows of ct;
+    for each row, whether a stage is past its margin: the input's phase
+    plus beta on the wrong side of its MSB (the first floor keeps the high
+    part of ct + beta), a floor's middle phase x (ct + beta - the first
+    bootstrap, mod q) outside [q/4, 3q/4), the range its second LUT
+    assumes, or its output off the exact high part of ct + beta by q/2 or
+    more (the next stage, after the modulus switch by q / (2 beta), adds
+    beta and keeps its own high part or MSB: it tolerates less than q/2
+    here), or the sign bootstrap's input (plus beta) in the wrong half;
+    with the stages' output, which must be eval_sign's."""
+    from fhe_tpu_torch.tfhe import funcboot, lwe
+    p = ctx_f.params
+    q, beta = p.q, funcboot.BETA
+    mod = ct.modulus
+    past = {"input": (lwe_error(sk_f, funcboot.add_const(ct, beta), 0) % mod >= mod // 2)
+            != negative}
+    stage, cur = 0, ct
+    while mod > q:
+        stage += 1
+        ct1 = funcboot.add_const(cur, beta)
+        ct2 = funcboot.bootstrap_func(p, key_f, funcboot.set_modulus(ct1, q),
+                                      funcboot._f0_table(q, mod), mod)
+        mid = funcboot.sub(ct1, ct2)
+        x = lwe_error(sk_f, mid, 0) % q
+        xs = np.arange(q)
+        f2 = np.where(xs < q // 4, (mod - q // 2 - xs) % mod,
+                      np.where(xs < 3 * (q // 4), xs, (mod + q // 2 - xs) % mod))
+        ct3 = funcboot.bootstrap_func(p, key_f, funcboot.set_modulus(mid, q), f2.astype(np.uint32),
+                                      mod)
+        y = lwe_error(sk_f, ct1, 0) % mod
+        out = funcboot.sub(mid, ct3)
+        e_out = lwe_error(sk_f, out, y - y % q)
+        past[f"floor {stage}"] = (x < q // 4) | (x >= 3 * q // 4) | (e_out.abs() >= q // 2)
+        mod = (mod * 2 * beta) // q
+        cur = lwe.mod_switch(out, mod)
+    cur = funcboot.add_const(cur, beta)
+    cm = cur.modulus
+    past["sign bootstrap"] = (lwe_error(sk_f, cur, 0) % cm >= cm // 2) != negative
+    x = np.arange(cm)
+    f3 = np.where(x < cm // 2, q // 4, q - q // 4).astype(np.uint32)
+    out = funcboot.sub_const(funcboot.bootstrap_func(p, key_f, cur, f3, q), q >> 2)
+    return past, out
+
+
+def ss_sign_check(tag: str, ctx_f, sk_f, key_f, rec: RecordingSign, out, want, card: str):
+    """The compare's wrong signs: each past a margin of EvalSign's ladder
+    (sign_margins, on the wrong rows), the ladder's output eval_sign's;
+    the first 128 wrong rows and the first 64 through the plain rotation
+    byte-equal to the kernels'; the whole EvalSign through kernel 4 ("mega") equal to it."""
+    got = ctx_f.decrypt(sk_f, dataclasses.replace(out, pt_mod=2), 2).cpu().numpy()
+    wrong = np.flatnonzero(got != want)
+    print(f"{tag} compare: {len(wrong)} wrong signs of {len(want)}  ({card})")
+    rows = torch.from_numpy(np.union1d(wrong[:128], np.arange(64))).to(out.a.device)
+    lwe_in = rec.seen
+    if len(wrong):
+        neg = torch.from_numpy(want[wrong] == 1).to(out.a.device)
+        past, ladder = sign_margins(ctx_f, sk_f, key_f, lwe_rows(lwe_in, wrong), neg)
+        sub = lwe_rows(out, wrong)
+        if not (torch.equal(ladder.a, sub.a) and torch.equal(ladder.b, sub.b)):
+            fail(f"{tag} EvalSign's ladder taken apart does not give eval_sign's output")
+        explained = past["input"].clone()
+        for stage, flags in past.items():
+            if stage.startswith("floor"):
+                explained |= flags
+        print(f"{tag} compare's wrong signs, past the margin of: "
+              f"{ {stage: int(f.sum()) for stage, f in past.items()} }; past no floor's margin "
+              f"and not the input's: {int((~explained).sum())}")
+        if not bool(explained.all()):
+            fail(f"{tag} a wrong sign is past no floor's margin (nor the input's)")
+    t0 = time.perf_counter()
+    with plain_rotation():
+        plain = ctx_f.eval_sign(key_f, lwe_rows(lwe_in, rows))
+    sub = lwe_rows(out, rows)
+    if not (torch.equal(plain.a, sub.a) and torch.equal(plain.b, sub.b)):
+        fail(f"{tag} the compare's EvalSign differs from the plain pipeline's")
+    print(f"{tag} the compare's EvalSign on {len(rows)} rows (the first 128 wrong ones and the "
+          f"first 64) "
+          f"through the plain rotation: byte-equal to the kernels' "
+          f"({time.perf_counter() - t0:.3f} s, host clock)")
+    mega_ctx = dataclasses.replace(ctx_f, ntt_impl="mega")
+    mega, m_launches, _ = counted(tag, 'EvalSign with ntt_impl="mega"',
+                                  lambda: mega_ctx.eval_sign(key_f, lwe_in), limb_only=False)
+    if not (torch.equal(mega.a, out.a) and torch.equal(mega.b, out.b)):
+        fail(f'{tag} EvalSign with ntt_impl="mega" differs from the default accumulator')
+    print(f'{tag} EvalSign with ntt_impl="mega" (kernel 4): identical to the default')
+    return m_launches
+
+
+@contextlib.contextmanager
+def recorded_switch():
+    """Keeps the inputs of lwe.switch_ct_to_qn (eval_ckks_to_fhew's
+    extracted ring-LWE ciphertexts) of the calls in the block."""
+    from fhe_tpu_torch.tfhe import lwe
+    seen, original = [], lwe.switch_ct_to_qn
+
+    def switch(params, ksk, ct):
+        seen.append(ct)
+        return original(params, ksk, ct)
+    lwe.switch_ct_to_qn = switch
+    try:
+        yield seen
+    finally:
+        lwe.switch_ct_to_qn = original
+
+
+def ss_switch_check(tag: str, ctx_f, sk, sk_f, ring, cts, z: np.ndarray, card: str) -> None:
+    """eval_ckks_to_fhew's outputs: the extraction (under the CKKS ring
+    secret, mod the chain's first prime) exact, and the switched ones
+    (under the FHEW secret, mod q) wrong only as often as the switch's own
+    noise says.  That noise is predicted from the parameters: the key
+    switch sums N dc errors of std_dev at q_ks, the mod switches to q_ks
+    and to q round N- and n-term inner products with ternary secrets; a
+    p = 4 output is wrong past q/8.  The measured noise's std must be
+    within 15 % of the prediction and the wrong outputs within the
+    Poisson bound (tail LMK_PAST_TAIL) of its Gaussian rate."""
+    from fhe_tpu_torch.tfhe import lwe
+    p = ctx_f.params
+    n = len(z)
+    ring_sk = lwe.LweSecretKey(s=sk.s_signed.to(torch.int32))
+    ring_wrong = int((lwe.decrypt(p, ring_sk, ring, 4).cpu().numpy() != z).sum())
+    got = ctx_f.decrypt(sk_f, cts, 4).cpu().numpy()
+    wrong = int((got != z).sum())
+    e = lwe.noise(p, sk_f, cts, z, 4).double()
+    N = ring.n
+    var_ks = p.std_dev ** 2 * N * p.digits_ks + (1 + N * 2 / 3) / 12
+    sigma = math.sqrt(var_ks * (p.q / p.q_ks) ** 2 + (1 + p.n * 2 / 3) / 12)
+    rate = math.erfc(p.q / 8 / (sigma * math.sqrt(2)))
+    limit = poisson_limit(rate * n, LMK_PAST_TAIL)
+    measured = float(e.std())
+    print(f"{tag} eval_ckks_to_fhew of {n} slots of integers in [0, 4): the extraction (N = {N}, "
+          f"mod {ring.modulus}) {ring_wrong} wrong; switched to (n = {cts.n}, q = {cts.modulus}) "
+          f"{wrong} wrong of {n}; the switch's noise std {measured:.2f} at q (predicted "
+          f"{sigma:.2f}: std_dev sqrt(N dc) = {p.std_dev * math.sqrt(N * p.digits_ks):.1f} at q_ks "
+          f"= {p.q_ks}), largest |e| {int(e.abs().max())} against the margin q/8 = {p.q // 8}: "
+          f"a rate of {rate:.2e}, at most {limit} wrong (ROADMAP queue 3)  ({card})")
+    if ring_wrong or cts.n != p.n or wrong > limit or abs(measured - sigma) > 0.15 * sigma:
+        fail(f"{tag} eval_ckks_to_fhew: the extraction {ring_wrong} wrong, {wrong} wrong after the"
+             f" switch (at most {limit}), noise std {measured} against {sigma}")
+
+
+def ss_fhew_to_ckks_check(tag: str, ctx, sk, res, sk_f, cts, bits: np.ndarray, card: str):
+    """eval_fhew_to_ckks of LWE bits (p = 4): the slots round to the bits,
+    and hold sin(2 pi phi / q), phi each input's exact phase b - <a, s>,
+    within FHEW_CKKS_TOL (the function the conversion evaluates: its
+    (1/2pi) sin(2 pi x) times the post-scale 2 pi).  tests/test_schemeswitch.py
+    bounds |slot - bit| by 0.3 for fresh encryptions; a bootstrapped gate's
+    output carries more noise, which the sine passes on near 0, so slots
+    past 0.3 are counted and must be as far through their inputs' phases."""
+    B = len(bits)
+    vals = ctx.decrypt(sk, res).real[:B]
+    q = cts.modulus
+    s = sk_f.s.to(cts.a.device, torch.int64)
+    phi = ((cts.b.to(torch.int64) - (cts.a.to(torch.int64) * s).sum(-1)) % q).cpu().numpy()
+    exact = np.sin(2 * np.pi * phi / q)
+    err = float(np.abs(vals - exact).max())
+    wrong = int((np.rint(vals) != bits).sum())
+    far = np.abs(vals - bits) >= 0.3
+    noisy = np.abs(exact - bits) >= 0.3 - FHEW_CKKS_TOL
+    print(f"{tag} eval_fhew_to_ckks: max |decrypted - sin(2 pi phi / q)| = {err:.3e} (tolerance "
+          f"{FHEW_CKKS_TOL:g}); {wrong} of {B} round wrong; {int(far.sum())} slots 0.3 or more "
+          f"from their bit (the inputs' own noise: max |sin(2 pi phi / q) - bit| = "
+          f"{float(np.abs(exact - bits).max()):.4f}, largest |phi - bit q/4| "
+          f"{int(np.abs((phi - bits * (q // 4) + q // 2) % q - q // 2).max())} of q = {q}); "
+          f"{len(res.moduli)} limbs left  ({card})")
+    if not err < FHEW_CKKS_TOL or wrong or (far & ~noisy).any():
+        fail(f"{tag} eval_fhew_to_ckks: error {err}, {wrong} wrong, "
+             f"{int((far & ~noisy).sum())} past 0.3 without their inputs")
+
+
+def fhew_to_ckks_depth(K: int) -> int:
+    """Levels eval_fhew_to_ckks spends on SS_F2C_CONFIG's chain: its
+    A-transform's rescale, the sine's Paterson-Stockmeyer series and 3
+    double angles (measured on a probe ciphertext of that chain's shape at
+    N = 128 on the CPU) and its post-scale's rescale."""
+    from fhe_tpu_torch.pke import advanced, bootstrap, ckks, params
+    probe = ckks.CkksContext(params.make_ckks_params(**dict(SS_F2C_CONFIG, N=128, num_levels=14)),
+                             torch.device("cpu"))
+    rng = np.random.default_rng(SEED + 71)
+    sk, pk = probe.keygen(rng)
+    evk = probe.relin_key_gen(sk, rng)
+    ct = probe.encrypt(pk, np.zeros(64), rng)
+    y = advanced.eval_chebyshev_series_ps(probe, ct, bootstrap._sine_cheb_coeffs(K, r=3, tol=1e-7),
+                                          -1.0, 1.0, evk)
+    y = bootstrap._double_angle(probe, y, evk, 3)
+    return 1 + (len(ct.moduli) - len(y.moduli)) // probe.cd + 1
+
+
+def ss_phase(dev, errors: Errors, card: str, ctx_f, sk_f, key_f, and_out, and_want) -> dict:
+    """The [ss] phase: CKKS <-> FHEW scheme switching (pke/schemeswitch.py)
+    with the main path's STD128 context, secret and key as the FHEW side:
+    CKKS -> FHEW and compare at bench config 3, FHEW -> CKKS of [main]'s
+    AND outputs at N = 2^14 on a chain as deep as its sine, min and max at
+    N = 2^11 with TOY_RADIX; returns the launches of its calls by kernel."""
+    from fhe_tpu_torch.lattice import stdparams
+    from fhe_tpu_torch.pke import bootstrap, ckks, params
+    from fhe_tpu_torch.pke import schemeswitch as ss
+    t_phase = time.perf_counter()
+    tag = "[ss]"
+    total = collections.Counter()
+    shapes = collections.Counter()
+
+    def run(call: str, fn, encodes: str):
+        with host_encode_clock() as host_s:
+            (ms, out), launches, sh = counted(tag, call, lambda: timed_once(fn), limb_only=False)
+        print(f"{tag} {call}: {ms:.3f} ms (CUDA events, one call); {host_s[0]:.3f} s of it "
+              f"({host_s[0] * 1e3 / ms:.3f}) encoding plaintexts on the host ({encodes}; host "
+              f"clock)  ({card})")
+        total.update(launches)
+        shapes.update(sh)
+        return out
+
+    # CKKS -> FHEW at bench config 3, to STD128's (n, q)
+    ctx = ckks.CkksContext.create(**CKKS_CONFIG, device=dev)
+    n = ctx.params.N // 2
+    rng = np.random.default_rng(SEED + 60)
+    sk, pk = ctx.keygen(rng)
+    t0 = time.perf_counter()
+    key = ss.ckks_to_fhew_setup(ctx, sk, ctx_f.params, sk_f, rng)
+    torch.cuda.synchronize()
+    print(f"{tag} bench config 3 (N = {ctx.params.N}, {len(ctx.params.moduli)} limbs, scale "
+          f"2^{ctx.params.scale_bits}) to {ctx_f.params.name} (n = {ctx_f.params.n}, q = "
+          f"{ctx_f.params.q}, q_ks = {ctx_f.params.q_ks}): ckks_to_fhew_setup "
+          f"{time.perf_counter() - t0:.3f} s (host clock: {len(key.rot_keys)} rotation keys and "
+          f"the "
+          f"ring-to-FHEW switching key {tuple(key.ksk.a.shape)}, "
+          f"{_nbytes(key.ksk.a, key.ksk.b) / 1e9:.2f} GB as int32)")
+    z = rng.integers(0, 4, size=n)
+    ct = ctx.encrypt(pk, z.astype(np.float64), rng)
+    with recorded_switch() as switched:
+        cts = run("eval_ckks_to_fhew", lambda: ss.eval_ckks_to_fhew(
+            ctx, key, ct, p=4, fhew_params=ctx_f.params), f"{n} diagonals")
+    ss_switch_check(tag, ctx_f, sk, sk_f, switched[0], cts, z, card)
+
+    # compare at p = 8: EvalSign from q_ks = 16 q
+    z1 = rng.integers(0, 4, size=n)
+    z2 = (z1 + rng.integers(1, 4, size=n)) % 4
+    ct1 = ctx.encrypt(pk, z1.astype(np.float64), rng)
+    ct2 = ctx.encrypt(pk, z2.astype(np.float64), rng)
+    rec = RecordingSign(ctx_f)
+    out = run("eval_compare_scheme_switching", lambda: ss.eval_compare_scheme_switching(
+        ctx, key, ct1, ct2, rec, key_f, p=8), f"{n} diagonals")
+    total.update(ss_sign_check(tag, ctx_f, sk_f, key_f, rec, out, (z1 < z2).astype(np.int64),
+                               card))
+    del key, rec
+
+    # FHEW -> CKKS of the AND outputs at N = 2^14, on a chain as deep as the sine
+    K = int(3 * np.sqrt(ctx_f.params.n)) + 8
+    depth = fhew_to_ckks_depth(K)
+    p2 = params.make_ckks_params(**SS_F2C_CONFIG, num_levels=depth)
+    ctx2 = ckks.CkksContext(p2, dev)
+    log_qp = sum(math.log2(q) for q in p2.moduli + p2.special_mods)
+    scales = [math.log2(v) for v in ckks._level_scales(p2).values()]
+    print(f"{tag} FHEW -> CKKS chain: the sine for n = {ctx_f.params.n} (K = {K}, degree "
+          f"{len(bootstrap._sine_cheb_coeffs(K, 3, 1e-7)) - 1}) and the two rescales around it "
+          f"take {depth} levels: N = {p2.N}, scale 2^{p2.scale_bits} at composite degree "
+          f"{p2.composite_degree}, dnum = {p2.num_part_q}, track_scale (level scales 2^"
+          f"{min(scales):.3f} to 2^{max(scales):.3f}), "
+          f"{len(p2.moduli)} + {len(p2.special_mods)} limbs, log2 QP = {log_qp:.2f} (the HE "
+          f"standard's 128-bit bound at this N: "
+          f"{stdparams.max_log_q(p2.N, '128_classic', 'ternary')}"
+          f"; ROADMAP queue 3)")
+    rng = np.random.default_rng(SEED + 61)
+    sk2, pk2 = ctx2.keygen(rng)
+    evk2 = ctx2.relin_key_gen(sk2, rng)
+    t0 = time.perf_counter()
+    k2 = ss.fhew_to_ckks_setup(ctx2, sk2, sk_f, pk2, rng)
+    torch.cuda.synchronize()
+    print(f"{tag} fhew_to_ckks_setup: {time.perf_counter() - t0:.3f} s (host clock; "
+          f"{len(k2.rot_keys)} rotation keys)")
+    res = run(f"eval_fhew_to_ckks of [main]'s {len(and_want)} AND outputs", lambda: (
+        ss.eval_fhew_to_ckks(ctx2, k2, and_out, evk2)), f"{n} diagonals and the sine's constants")
+    ss_fhew_to_ckks_check(tag, ctx2, sk2, res, sk_f, and_out, and_want, card)
+    del k2, ctx2
+
+    total.update(ss_minmax(tag, dev, card, shapes))
+    limb_kernels_at(tag, "[ss] call", dev, shapes, {}, errors, int_multiply_peak(dev), card)
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return total
+
+
+def ss_minmax(tag: str, dev, card: str, shapes: collections.Counter) -> collections.Counter:
+    """Min and max at N = 2^11 with TOY_RADIX keyed on the card (the wide
+    rotation kernels): tests/test_schemeswitch.py's chain (18 levels, scale
+    2^26, dnum 2), values and bounds; compare and the _alt forms."""
+    from fhe_tpu_torch import BinFheContext
+    from fhe_tpu_torch.pke import ckks
+    from fhe_tpu_torch.pke import schemeswitch as ss
+    total = collections.Counter()
+    rng = np.random.default_rng(SEED + 62)
+    t0 = time.perf_counter()
+    tctx = BinFheContext.generate(RADIX_SET, device=dev)
+    tsk = tctx.key_gen(rng)
+    tkey = tctx.bt_key_gen(tsk, rng)
+    ctx = ckks.CkksContext.create(N=SS_SMALL_N, num_levels=18, scale_bits=26, dnum=2, device=dev)
+    sk, pk = ctx.keygen(rng)
+    evk = ctx.relin_key_gen(sk, rng)
+    key = ss.ckks_to_fhew_setup(ctx, sk, tctx.params, tsk, rng)
+    k2 = ss.fhew_to_ckks_setup(ctx, sk, tsk, pk, rng)
+    rot = ctx.rotation_key_gen(sk, sorted(set(ss.min_max_rotation_indices(4))), rng)
+    torch.cuda.synchronize()
+    print(f"{tag} N = {SS_SMALL_N} (18 levels, scale 2^26, dnum 2) with {RADIX_SET} (N = "
+          f"{tctx.params.N}, n = {tctx.params.n}, q_ks = {tctx.params.q_ks}): keys "
+          f"{time.perf_counter() - t0:.3f} s (host clock)")
+    slots = ctx.params.N // 2
+
+    def counted_call(call, fn):
+        out, launches, sh = counted(tag, call, fn, limb_only=False)
+        total.update(launches)
+        shapes.update(sh)
+        return out
+
+    z1, z2 = np.zeros(slots), np.zeros(slots)
+    z1[:4] = [1.0, 3.0, 2.0, 0.0]
+    z2[:4] = [2.0, 1.0, 4.0, 3.0]
+    out = counted_call("compare (4 pairs)", lambda: ss.eval_compare_scheme_switching(
+        ctx, key, ctx.encrypt(pk, z1, rng), ctx.encrypt(pk, z2, rng), tctx, tkey, num_values=4))
+    got = tctx.decrypt(tsk, dataclasses.replace(out, pt_mod=2), 2).cpu().numpy()
+    want = (z1[:4] < z2[:4]).astype(int)
+    print(f"{tag} N = {SS_SMALL_N} compare: {got.tolist()} (want {want.tolist()})")
+    if (got != want).any():
+        fail(f"{tag} compare at N = {SS_SMALL_N} is wrong")
+    z = np.zeros(slots)
+    z[:4] = [3.0, 1.0, 2.0, 4.0]
+    zz = np.zeros(slots)
+    zz[:2] = [1.0, 3.0]
+    for alt in (False, True):
+        fmin = ss.eval_min_scheme_switching_alt if alt else ss.eval_min_scheme_switching
+        fmax = ss.eval_max_scheme_switching_alt if alt else ss.eval_max_scheme_switching
+        name = "_alt" if alt else ""
+        mn, ind = counted_call(f"min{name} of 4", lambda: fmin(
+            ctx, key, k2, ctx.encrypt(pk, z, rng), tctx, tkey, evk, rot, num_values=4))
+        mx, _ = counted_call(f"max{name} of 2", lambda: fmax(
+            ctx, key, k2, ctx.encrypt(pk, zz, rng), tctx, tkey, evk, rot, num_values=2))
+        v_min, v_ind = ctx.decrypt(sk, mn).real[0], ctx.decrypt(sk, ind).real[:4]
+        v_max = ctx.decrypt(sk, mx).real[0]
+        print(f"{tag} N = {SS_SMALL_N} min{name} of [3, 1, 2, 4]: {v_min:.4f}, argmin indicator "
+              f"{np.round(v_ind, 4).tolist()}; max{name} of [1, 3]: {v_max:.4f} (bounds 0.2 and "
+              f"argmin > 0.6, tests/test_schemeswitch.py:127-148)")
+        if not (abs(v_min - 1) < 0.2 and np.argmax(v_ind) == 1 and v_ind[1] > 0.6
+                and abs(v_max - 3) < 0.2):
+            fail(f"{tag} min/max{name} at N = {SS_SMALL_N} outside the bounds")
+    if not total["blind_rotate_wide"]:
+        fail(f"{tag} the min/max runs launched no wide rotation kernel")
+    return total
 
 
 def time_ms(fn, reps: int) -> float:
@@ -3081,8 +3876,10 @@ def timings(dev, ctx, key, cts, errors: Errors, card: str) -> dict:
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--boot-cpu"]:
-        return boot_small_child(sys.argv[2])
+    if sys.argv[1:2] == ["--small-cpu"]:
+        return small_child(sys.argv[2])
+    if sys.argv[1:2] == ["--ss"]:
+        return ss_child(sys.argv[2])
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
     from fhe_tpu_torch import kernels  # noqa: F401  (fails outside a checkout)
@@ -3090,9 +3887,21 @@ def main() -> int:
     card = card_line()
     device_report(card)
     build()
+    with small_on_cpu() as small_cpu:
+        rows = phases(dev, card, small_cpu)
+    print(json.dumps({"kernels": rows}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def phases(dev, card: str, small_cpu) -> list[dict]:
+    """Every phase after the build; returns the kernels line's rows."""
     errors = Errors()
     check_kernels(dev, errors)
-    ctx, sk, key, cts, launches = main_path(dev)
+    ctx, sk, key, cts, launches, main_digest = main_path(dev)
     func_launches = func_phase(dev, ctx, sk, key, errors, card)
     for name in ("ntt_forward", "ntt_inverse"):
         launches[name] += func_launches[None][name]
@@ -3110,24 +3919,31 @@ def main() -> int:
     new_launches = [mp_phase(dev, errors, card), adv_phase(dev, errors, card),
                     pre_phase(dev, errors, card)]
     print(f"[mp] + [adv] + [pre] took {time.perf_counter() - t_new:.3f} s (host clock)")
-    new_launches.append(boot_phase(dev, errors, card))
+    with ss_process() as ss_result:
+        boot_launches, boot_state = boot_phase(dev, errors, card, small_cpu)
+        new_launches.append(boot_launches)
+        new_launches.append(fbt_phase(dev, errors, card, boot_state, small_cpu))
+        del boot_state
+        ss, ss_s = ss_result()
+    if ss["digest"] != main_digest:
+        fail("[ss] its process did not hold the main path's STD128 key and AND outputs")
+    print(f"[ss] the phase ran in a process of its own beside [boot] and [fbt] (its times are "
+          f"taken beside them): done {ss_s:.1f} s after [boot] began (host clock); the main path's "
+          f"key and AND outputs, digest {main_digest[:16]}")
     for name in LIMB_KERNELS:
         launches[name] += ckks_launches[name] + bfv_launches[name] + bgv_launches[name]
         launches[name] += sum(n[name] for n in new_launches)
+    for name in KERNELS:
+        launches[name] += ss["launches"][name]
+        errors.max[name] = max(errors.max[name], ss["errors"][name])
     times = timings(dev, ctx, key, cts, errors, card)
     times.update(rns_times)
     times.update(radix_times)
-    rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+    return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errors.max[name],
              "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],
              "bound_by": times[name][3], "library_ms": None}
             for name, (src, rep) in KERNELS.items()]
-    print(json.dumps({"kernels": rows}))
-    print(card_line())
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

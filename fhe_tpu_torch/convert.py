@@ -9,7 +9,10 @@ CKKS, BGV and BFV ciphertexts (`ckks_ciphertext`, `bgv_ciphertext`,
 `bfv_ciphertext`), and the multiparty state a seed cannot rebuild: a
 party's partial decryption (`partial_decryption`) and interactive-
 bootstrap shares (`int_boot_shares`); joint keys are `eval_key` /
-`rlwe_public_key` of their arrays.
+`rlwe_public_key` of their arrays.  Functional bootstrapping's schemelet
+ciphertext (`rlwe_mp_ciphertext`, Python integers on the host in both
+packages) and setup (`fbt_precom`, numpy in both), and scheme switching's
+keys (`ckks_to_fhew_key`, `fhew_to_ckks_key`).
 Residues are uint32 below 2^31 in fhe_tpu and int32 here; the secret key
 is small signed integers in both.  The tensors go to the first CUDA card
 unless the caller names another device.
@@ -25,7 +28,9 @@ from .pke import rlwe
 from .pke.bfv import Ciphertext as BfvCiphertext
 from .pke.bgv import Ciphertext as BgvCiphertext
 from .pke.ckks import Ciphertext as CkksCiphertext
+from .pke.fbt import FbtPrecom, RlweMpCiphertext
 from .pke.multiparty import IntBootShares, PartialDecryption
+from .pke.schemeswitch import CkksToFhewKey, FhewToCkksKey
 from .tfhe.acc import DmKey, LmkcdeyKey
 from .tfhe.lwe import LweCiphertext, LwePublicKey, LweSecretKey, LweSwitchingKey
 from .tfhe.radix import RadixInt, RadixParams
@@ -226,3 +231,43 @@ def _limbs(x, moduli, name: str, device) -> torch.Tensor:
 
 def _poly(x, moduli, name: str, device) -> RnsPoly:
     return RnsPoly(_limbs(x, moduli, name, device), tuple(int(q) for q in moduli), EVAL)
+
+
+# ---------------------------------------------------------------------------
+# functional bootstrapping and scheme switching (fhe_tpu/pke/fbt.py,
+# schemeswitch.py)
+# ---------------------------------------------------------------------------
+
+def rlwe_mp_ciphertext(c0, c1, q: int, delta: float) -> RlweMpCiphertext:
+    """fhe_tpu fbt.RlweMpCiphertext (c0, c1 object arrays of Python ints, q,
+    delta) -> RlweMpCiphertext (the same host integers, copied)."""
+    ints = lambda x: np.array([int(v) for v in np.asarray(x, dtype=object)], dtype=object)
+    return RlweMpCiphertext(c0=ints(c0), c1=ints(c1), q=int(q), delta=float(delta))
+
+
+def fbt_precom(slots: int, K: int, r: int, exp_coeffs, E_lo, rot_indices, bsgs_g: int
+               ) -> FbtPrecom:
+    """fhe_tpu fbt.FbtPrecom's fields -> FbtPrecom (host numpy in both)."""
+    return FbtPrecom(slots=int(slots), K=int(K), r=int(r),
+                     exp_coeffs=[complex(c) for c in exp_coeffs],
+                     E_lo=np.array(E_lo, dtype=np.complex128),
+                     rot_indices=[int(i) for i in rot_indices], bsgs_g=int(bsgs_g))
+
+
+def ckks_to_fhew_key(rot_keys: dict, ksk_a, ksk_b, bsgs_g: int, slots: int,
+                     scale_cf: float = 1.0, device="cuda") -> CkksToFhewKey:
+    """fhe_tpu schemeswitch.CkksToFhewKey -> CkksToFhewKey: rot_keys maps a
+    rotation to the port's EvalKey (`eval_key` of fhe_tpu's arrays);
+    ksk_a, ksk_b are the LWE switching key's arrays, or None (no key)."""
+    ksk = None if ksk_a is None else _ksk(ksk_a, ksk_b, device)
+    return CkksToFhewKey(rot_keys=dict(rot_keys), ksk=ksk, bsgs_g=int(bsgs_g),
+                         slots=int(slots), scale_cf=float(scale_cf))
+
+
+def fhew_to_ckks_key(enc_c0, enc_c1, moduli, scale: float, rot_keys: dict, bsgs_g: int,
+                     device="cuda") -> FhewToCkksKey:
+    """fhe_tpu schemeswitch.FhewToCkksKey -> FhewToCkksKey: the CKKS
+    encryption of the FHEW secret (enc_sk's c0.data, c1.data, moduli,
+    scale) and the rotation keys as for ckks_to_fhew_key."""
+    return FhewToCkksKey(enc_sk=ckks_ciphertext(enc_c0, enc_c1, moduli, scale, device=device),
+                         rot_keys=dict(rot_keys), bsgs_g=int(bsgs_g))

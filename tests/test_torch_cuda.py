@@ -589,3 +589,95 @@ def test_bootstrap_on_card_matches_cpu(cuda):
     assert outs[0][:2] == outs[1][:2]
     _same(outs[1][2], outs[0][2])
     _same(outs[1][3], outs[0][3])
+
+
+def test_schemelet_product_on_card_matches_cpu(cuda):
+    """The FBT schemelet's exact negacyclic product (pke/fbt.py
+    _negacyclic_mul: NTTs over three 31-bit primes, a centred CRT) at
+    N = 2^11, a below 2^63 against a ternary secret: the card's integers
+    are the CPU's, through the limb-stacked kernels."""
+    from fhe_tpu_torch.pke import fbt
+    rng = np.random.default_rng(15)
+    a = np.array([int(x) << 1 | int(y) for x, y in zip(rng.integers(0, 1 << 62, size=2048),
+                                                       rng.integers(0, 2, size=2048))],
+                 dtype=object)
+    s = np.array([int(x) for x in rng.integers(-1, 2, size=2048)], dtype=object)
+    before = launch_counts()
+    got = fbt._negacyclic_mul(a, s, cuda)
+    after = launch_counts()
+    assert {k for k in after if after[k] != before[k]} == {"ntt_forward_limbs",
+                                                           "ntt_inverse_limbs"}
+    assert [int(x) for x in got] == [int(x) for x in fbt._negacyclic_mul(a, s, "cpu")]
+
+
+def test_extract_lwe_all_on_card_matches_cpu(cuda, gen):
+    """schemeswitch.extract_lwe_all's rows (one gather of the first num
+    rows) at N = 2^11, all of them and the first 1024, card against CPU."""
+    from fhe_tpu_torch.pke import schemeswitch as ss
+    q = 1073479681
+    c0 = _residues(gen, q, (2048,), "cpu")
+    c1 = _residues(gen, q, (2048,), "cpu")
+    for num in (None, 1024):
+        want = ss.extract_lwe_all(c0, c1, q, 4, num=num)
+        got = ss.extract_lwe_all(c0.to(cuda), c1.to(cuda), q, 4, num=num)
+        _same(got.a.cpu(), want.a)
+        _same(got.b.cpu(), want.b)
+
+
+FBT_SMALL = dict(N=1 << 11, num_levels=18, scale_bits=26, dnum=3, first_bits=30)
+
+
+@pytest.mark.parametrize("slots", [None, 256], ids=["dense", "sparse"])
+def test_fbt_on_card_matches_cpu(slots, cuda):
+    """pke/fbt.py eval_fbt at N = 2^11 on fhe_tpu's FBT chain (18 levels of
+    26 bits, dnum = 3, a weight-4 secret, r = 2), keyed from one seed on
+    the CPU and on the card: fully packed (2048 digits) and sparse (256
+    slots, 512 digits, d = 4); the same ciphertext, (3x + 2) mod 4 exact."""
+    from fhe_tpu_torch.pke import ckks, fbt
+    outs = []
+    for dev in ("cpu", cuda):
+        ctx = ckks.CkksContext.create(device=dev, **FBT_SMALL)
+        N = ctx.params.N
+        rng = np.random.default_rng(12)
+        sk, _ = ctx.keygen(rng, h=4)
+        pre = fbt.setup(ctx, h=4, r=2, slots=slots)
+        keys = fbt.keygen(ctx, sk, pre, rng)
+        stride = 1 if slots is None else N // (2 * slots)
+        vals = rng.integers(0, 4, size=N // stride)
+        msg = np.zeros(N, dtype=np.int64)
+        msg[::stride] = vals
+        ct = fbt.convert_rlwe_to_ckks(ctx, fbt.encrypt_coeff(ctx, sk, msg, 1 << 33, 4, rng),
+                                      num_values=None if slots is None else N // stride)
+        coeffs = fbt.get_hermite_trig_coefficients(lambda x: (3 * x + 2) % 4, 4, 2)
+        out = fbt.eval_fbt(ctx, ct, coeffs, pre, keys)
+        got = fbt.decrypt_coeff(ctx, sk, fbt.convert_ckks_to_rlwe(ctx, out, 1 << 33,
+                                                                  target_delta=(1 << 33) / 4), 4)
+        np.testing.assert_array_equal(got[::stride], (3 * vals + 2) % 4)
+        outs.append((out.scale, out.moduli, out.c0.data.cpu(), out.c1.data.cpu()))
+    assert outs[0][:2] == outs[1][:2]
+    _same(outs[1][2], outs[0][2])
+    _same(outs[1][3], outs[0][3])
+
+
+def test_ckks_to_fhew_on_card_matches_cpu(cuda):
+    """schemeswitch.eval_ckks_to_fhew at N = 2^11 (15 levels, 26 bits, dnum
+    = 2) to TOY's (n, q), setup and keys from one seed on the CPU and on
+    the card: the same LWE ciphertexts, all 1024 integers in [0, 4) exact."""
+    from fhe_tpu_torch.pke import ckks
+    from fhe_tpu_torch.pke import schemeswitch as ss
+    outs = []
+    for dev in ("cpu", cuda):
+        ctx = ckks.CkksContext.create(N=1 << 11, num_levels=15, scale_bits=26, dnum=2,
+                                      device=dev)
+        tctx = BinFheContext.generate("TOY", device=dev)
+        rng = np.random.default_rng(13)
+        sk, pk = ctx.keygen(rng)
+        tsk = tctx.key_gen(rng)
+        key = ss.ckks_to_fhew_setup(ctx, sk, tctx.params, tsk, rng)
+        z = rng.integers(0, 4, size=1024)
+        cts = ss.eval_ckks_to_fhew(ctx, key, ctx.encrypt(pk, z.astype(np.float64), rng), p=4,
+                                   fhew_params=tctx.params)
+        np.testing.assert_array_equal(tctx.decrypt(tsk, cts, p=4).cpu().numpy(), z)
+        outs.append((cts.a.cpu(), cts.b.cpu()))
+    _same(outs[1][0], outs[0][0])
+    _same(outs[1][1], outs[0][1])
