@@ -10,14 +10,15 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
 1. device: card name and power limit, torch, nvcc, triton;
 2. build: compiles every kernel from fhe_tpu_torch/csrc/ (nvcc, sm_90a);
 3. kernels against their plain PyTorch versions on the card, byte-equal:
-   the NTT kernels at every N of csrc/ntt_shapes.h with 1, 3 and
+   the NTT kernels at every N of csrc/ntt_shapes.h (2^3 to 2^8 the
+   small-N kernels of csrc/ntt_small.cu: [ntt-small]) with 1, 3 and
    P x SMs + 1 rows (P rows a block: the last block has masked rows), a
    prime below 2^30 (lazy butterflies) and one in (2^30, 2^31) (canonical),
    natural and bit-reversed output and the round trip (at N = 2^16 the
    split kernels: two 2^15 halves after the first stage); the limb-stacked
    ones at N = 2^14 with 1, 3, 11 and 64 limbs, at N = 2^15 with 1, 3, 8,
-   58 and 64 and at N = 2^16 with 1, 3, 58 and 64; N = 2^17, the first N
-   not built, and 65 limbs refused with a ValueError; the
+   58 and 64 and at N = 2^16 with 1, 3, 58 and 64; N = 4, N = 2^17, the
+   first N not built, and 65 limbs refused with a ValueError; the
    blind rotations at batch 1, 8 and an odd
    4097, which the wrappers run two ciphertexts to a block with one masked
    lane;
@@ -220,7 +221,33 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    compare and the _alt forms at N = 2^11 with TOY_RADIX (the wide
    kernels), within fhe_tpu's test bounds; kernels 1-2 at the phase's new
    shapes against their plain versions;
-18. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+18. [td], the RLWE trapdoor (lattice/trapdoor.py) at N = 1024, q = STD128's
+   Q, base 2 (k = 27): trapdoor_gen, then gauss_samp and
+   gauss_samp_corrected on 4 syndromes each, every preimage verified on
+   the card, a changed one refused; kernels 1-2's launches a sampler call;
+   the card byte-equal to the CPU port from the same seed; the corrected
+   preimages' max |x| and std against fhe_tpu's bounds in s;
+19. [arb], the Bluestein and arbitrary-cyclotomic transforms
+   (math/ntt_arb.py) at fhe_tpu's test lengths m = 7, 12, 15, 24 (the
+   small-N kernels, L = 32 to 128) against a naive DFT and a schoolbook
+   product mod (Phi_m, q), and at the prime m = 1733 (L = 2^13,
+   limb-stacked) the round trips and the product against the exact
+   convolution mod (Phi_m, q); the card byte-equal to the CPU;
+20. [thr], threshold decryption (tfhe/threshold.py) of [main]'s 4096 AND
+   outputs: additive 3-of-3 with proofs (each verified, a tampered partial
+   refused), Shamir 2-of-3 on 4096 extended outputs under the key's ring
+   secret, each subset 0 wrong; every share, partial, proof and combine
+   byte-equal to the CPU port's on the ciphertexts copied to the host;
+21. [zkp], an 8-bit ripple-carry adder of STD128 gates at batch 1 recorded
+   by a WitnessBuilder (tfhe/zkp.py): the sum right, the witness verified, a
+   tampered gate and a wrong root refused, every sampled gate replayed on
+   the card to its committed bytes; [radix] adds get_proof /
+   verify_proof of its euint64 balances against the CPU port's;
+22. [pack], STD128's bootstrap and switching keys packed and unpacked
+   (tfhe/packed.py): a batch-4096 AND through the unpacked key identical to
+   the AND through the key, the LWE batch round trip in both layouts; then
+   the small-N kernels timed at [arb]'s shapes (cold L2) beside their bound;
+23. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
    the NTT kernels, and their plain versions, with a cold L2 (each call
@@ -243,6 +270,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
@@ -273,9 +301,14 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                                "fhe_tpu/tfhe/boot_pallas.py:235"),
     "rotate_step_br_wide": ("fhe_tpu_torch/csrc/blind_rotate.cuh",
                             "fhe_tpu/tfhe/boot_pallas.py:153"),
+    "ntt_forward_small": ("fhe_tpu_torch/csrc/ntt_small.cu", "fhe_tpu/math/ntt_pallas.py:64"),
+    "ntt_inverse_small": ("fhe_tpu_torch/csrc/ntt_small.cu", "fhe_tpu/math/ntt_pallas.py:79"),
 }
 # kernels 1-2 over stacked limbs: the RNS path's only kernels, on no other path
 LIMB_KERNELS = ("ntt_forward_limbs", "ntt_inverse_limbs")
+# kernels 1-2 at N = 2^3..2^8 (csrc/ntt_small.cu): the trapdoor's and the
+# Bluestein transforms' small rings, on no gate's path
+SMALL_KERNELS = ("ntt_forward_small", "ntt_inverse_small")
 # the accumulator kernel each ntt_impl runs, and its launches per gate
 ACC_KERNEL = {None: "blind_rotate", "mega": "blind_rotate_mega", "fused": "rotate_step_br"}
 # the same at a ring of N >= kernels.blind_rotate.wide_n(): the wide step
@@ -387,6 +420,17 @@ SS_F2C_CONFIG = dict(N=1 << 14, scale_bits=52, composite_degree=2, first_bits=60
 # times ~4 a double angle (3 of them) and the 2 pi post-scale, is 4e-5
 FHEW_CKKS_TOL = 1e-3
 SS_SMALL_N = 1 << 11
+# the [td] phase: STD128's ring (N = 1024, Q = 134215681 = 1 mod 2048, the
+# main path's RGSW key's), base 2 (k = 27), fhe_tpu's sigma; syndromes a
+# sampler; the [arb] phase: fhe_tpu's test lengths (tests/test_arbntt.py,
+# padded convolutions of L = 32 to 128: the small-N kernels) and a prime
+# index whose convolution pads to 2^13 (1733 + 3465 - 2 = 5196); [zkp]'s
+# adder width
+TD_CONFIG = dict(N=1024, q=134215681, base=2, sigma=3.19)
+TD_SYNDROMES = 4
+ARB_MS = (7, 12, 15, 24)
+ARB_BIG_M = 1733
+ZKP_BITS = 8
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
@@ -440,6 +484,8 @@ def kernel_reports(log: str) -> list[tuple[str, int, int]]:
                     "ntt_forward_half_kernel" if "forward_half_kernel" in mangled else
                     "ntt_inverse_half_kernel" if "inverse_half_kernel" in mangled else
                     "ntt_inverse_stage_kernel" if "inverse_stage_kernel" in mangled else
+                    "ntt_forward_small_kernel" if "forward_small_kernel" in mangled else
+                    "ntt_inverse_small_kernel" if "inverse_small_kernel" in mangled else
                     "ntt_forward_kernel" if "forward_kernel" in mangled else
                     "ntt_inverse_kernel")
             name, spill = f"{kind}<{args}>" if args else kind, 0
@@ -526,24 +572,38 @@ def check_ntt_kernels(dev, errors: Errors) -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for N in kntt.sizes():
         rows_all = (1, 3, kntt.rows_per_block(N) * sms + 1)
+        small = N in kntt.small_sizes()
+        fwd, inv = ("ntt_forward_small", "ntt_inverse_small") if small else (
+            "ntt_forward", "ntt_inverse")
         for q in (primes.last_prime(27, 2 * N), primes.last_prime(31, 2 * N)):
             plan = ntt.make_plan(N, q, dev)
             for rows in rows_all:
                 at = f"[{rows}, {N}] q={q}"
                 x = _residues(rng, q, (rows, N), dev)
                 f = ntt.ntt_forward(plan, x)
-                errors.compare("ntt_forward", f, ntt.forward_butterfly(plan, x),
-                               f"ntt_forward {at}", show=False)
-                errors.compare("ntt_forward", ntt.ntt_forward(plan, x, out_br=True),
+                errors.compare(fwd, f, ntt.forward_butterfly(plan, x), f"{fwd} {at}", show=False)
+                errors.compare(fwd, ntt.ntt_forward(plan, x, out_br=True),
                                ntt.forward_butterfly(plan, x, out_br=True),
-                               f"ntt_forward out_br {at}", show=False)
+                               f"{fwd} out_br {at}", show=False)
                 i = ntt.ntt_inverse(plan, f)
-                errors.compare("ntt_inverse", i, ntt.inverse_butterfly(plan, f),
-                               f"ntt_inverse {at}", show=False)
-                errors.compare("ntt_inverse", i, x, f"ntt round trip {at}", show=False)
-            arith = "lazy" if q < kntt.LAZY_Q else "canonical"
-            print(f"[kernels] ntt N={N} q={q} ({arith}), rows {rows_all}: forward, forward "
-                  f"out_br, inverse, round trip byte-equal to the plain versions")
+                errors.compare(inv, i, ntt.inverse_butterfly(plan, f), f"{inv} {at}", show=False)
+                errors.compare(inv, i, x, f"ntt round trip {at}", show=False)
+            arith = ("canonical (the small-N kernels)" if small else
+                     "lazy" if q < kntt.LAZY_Q else "canonical")
+            print(f"[kernels]{' [ntt-small]' if small else ''} ntt N={N} q={q} ({arith}), rows "
+                  f"{rows_all}: forward, forward out_br, inverse, round trip byte-equal to the "
+                  f"plain versions")
+    before = kernels.launch_counts()
+    for what, call in (("make_plan", lambda: ntt.make_plan(4, 17, dev)),
+                       ("check_n", lambda: kntt.check_n(4))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"[kernels] [ntt-small] N=4 {what}: ValueError: {e}")
+        else:
+            fail(f"N = 4 was not refused by {what}")
+    if kernels.launch_counts() != before:
+        fail("N = 4 launched a kernel")
     # CKKS bench config 3's Q u P (11 limbs), BFV bench config 4's Q u R (8),
     # the bootstrapping set's Q u P (58) and kMaxLimbs
     check_limb_kernels_wide(dev, errors, 1 << 14, (1, 3, 11, kntt.max_limbs()))
@@ -642,7 +702,8 @@ def run_path(ctx, sk, key, bits, cts, impl):
     per_gate = ctx.params.n if impl == "fused" else 1
     for name in KERNELS:
         want = gates * per_gate if name == ACC_KERNEL[impl] else (
-            0 if name in (*ACC_KERNEL.values(), *WIDE_KERNEL.values(), *LIMB_KERNELS) else None)
+            0 if name in (*ACC_KERNEL.values(), *WIDE_KERNEL.values(), *LIMB_KERNELS,
+                          *SMALL_KERNELS) else None)
         if want is None and launches[name] <= 0:
             fail(f"kernel {name} was not launched by the main path with ntt_impl={impl}")
         if want is not None and launches[name] != want:
@@ -790,7 +851,7 @@ def check_gate(what: str, ctx, sk, out, truth, ct1, ct2, bits1, bits2) -> np.nda
 def check_acc_launches(what: str, launches: dict, expected: collections.Counter) -> None:
     """Kernels 3-5 and the limb-stacked kernels not launched; kernels 1-2
     exactly as often as expected."""
-    for name in (*ACC_KERNEL.values(), *WIDE_KERNEL.values(), *LIMB_KERNELS):
+    for name in (*ACC_KERNEL.values(), *WIDE_KERNEL.values(), *LIMB_KERNELS, *SMALL_KERNELS):
         if launches[name]:
             fail(f"{what}: kernel {name} launched {launches[name]} times")
     for name in ("ntt_forward", "ntt_inverse"):
@@ -1695,6 +1756,17 @@ def radix_phase(dev, errors: Errors, card: str) -> tuple[dict, dict]:
         if any(r not in past for r in wrong):
             fail(f"{tag} euint64 transfer {what}: a row is wrong with every bootstrap input "
                  f"inside its margin")
+    # the proof (tfhe/zkp.py's commitment) of the euint64 balances: the card's
+    # against the CPU port's on the same ciphertext copied to the host
+    proof = fc.get_proof(xf)
+    on_host = dataclasses.replace(xf, value=dataclasses.replace(xf.value, ct=xf.value.ct.to("cpu")))
+    changed = bytes([proof[0] ^ 1]) + proof[1:]
+    if proof != fc.get_proof(on_host) or not fc.verify_proof(xf, proof) or \
+            fc.verify_proof(xf, changed):
+        fail(f"{tag} get_proof / verify_proof of the euint64 balances")
+    print(f"{tag} get_proof of the euint64 balances ({k} x 32 limbs): {proof.hex()[:16]}..., "
+          f"byte-equal to the CPU port's on the host copy; verify_proof accepts it and rejects "
+          f"it with one bit changed")
 
     x1, y1 = fc.encrypt(a[:1], E8, rng), fc.encrypt(b[:1], E8, rng)
     radix_run(tag, fc, "single euint8 add (batch 1)", lambda f, x, y: f.add(x, y), (x1, y1),
@@ -1848,6 +1920,27 @@ def limb_launch_shapes():
         kntt.inverse_limbs = originals["ntt_inverse_limbs"]
 
 
+@contextlib.contextmanager
+def single_launch_shapes():
+    """Counts the single-modulus NTT launches in the block by (kernel,
+    [rows, N], q), as limb_launch_shapes does the limb-stacked ones."""
+    from fhe_tpu_torch.kernels import ntt as kntt
+    seen = collections.Counter()
+    originals = (kntt.forward, kntt.inverse)
+
+    def recorder(kind, fn):
+        def call(plan, x, *args, **kwargs):
+            small = "_small" if plan.N in kntt.small_sizes() else ""
+            seen[(f"ntt_{kind}{small}", tuple(x.shape), plan.q)] += 1
+            return fn(plan, x, *args, **kwargs)
+        return call
+    kntt.forward, kntt.inverse = recorder("forward", originals[0]), recorder("inverse", originals[1])
+    try:
+        yield seen
+    finally:
+        kntt.forward, kntt.inverse = originals
+
+
 def ckks_values_close(what: str, got: np.ndarray, want: np.ndarray, tol: float,
                       tag: str = "[ckks]") -> None:
     err = float(np.abs(got - want).max())
@@ -1897,6 +1990,10 @@ def ckks_ops(ctx, rng, sk, pk, ct, z, w):
 # (kernel, shape, basis) of the limb-stacked launches limb_kernels_at has held
 # to the plain versions and timed in this run
 LIMB_SHAPES_CHECKED: set = set()
+# (what, kernel, shape, bound ms, one launch) of the launches whose trace held
+# no kernel (in [fbt], while the [ss] process traces beside it; [2, 3, N]
+# forwards in any phase): timed again by retrace_untraced
+UNTRACED: list = []
 
 
 def limb_kernels_at(tag: str, call: str, dev, shapes: collections.Counter, dev_ms: dict,
@@ -1932,13 +2029,38 @@ def limb_kernels_at(tag: str, call: str, dev, shapes: collections.Counter, dev_m
         b_ms, b_by = bound(_nbytes(x, x, plan.fwd_w, plan.fwd_ws), muls, int_peak)
         d_ms, where = dev_ms.get((kernel, shape, moduli)), "the call's trace"
         if d_ms is None:
-            d_ms = launch_ms(kernel_trace(lambda: fn(plan, x), 10), kernel, shape)
+            one = functools.partial(fn, plan, x)
+            d_ms = launch_ms(kernel_trace(one, 10), kernel, shape)
             where = "a trace of 10 launches"
+            if d_ms is None:
+                UNTRACED.append((f"{tag} {kernel} {list(shape)}", kernel, shape, b_ms, one))
         d_txt = (f"{d_ms:.4f} ms a launch on the device ({where}), at {b_ms / d_ms:.3f} of the "
-                 f"bound" if d_ms else "device time not measured (no kernel in the trace)")
+                 f"bound" if d_ms else "device time not measured (no kernel in the trace; "
+                 "timed again below)")
         print(f"{tag} {kernel} {list(shape)}: {d_txt}; {ms:.4f} ms a launch 10 back to back "
               f"(with the host's issue); plain {p_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}; "
               f"byte-equal to the plain version; {n} launches a {call}  ({card})")
+
+
+def retrace_untraced(dev, card: str) -> None:
+    """The device time of each launch in UNTRACED, from a new trace of 10
+    launches (called where no other process traces the card); where that
+    trace holds no kernel either, the CUDA-event time of one launch with a
+    cold L2 (the card idle until the launch is enqueued)."""
+    from fhe_tpu_torch.profile_ntt import FLUSH_WORDS, time_cold_ms
+    flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=dev) if UNTRACED else None
+    for what, kernel, shape, b_ms, one in UNTRACED:
+        ks = kernel_trace(one, 10)
+        d_ms = launch_ms(ks, kernel, shape)
+        where = "a new trace of 10 launches, no other process tracing"
+        if d_ms is None:
+            d_ms = time_cold_ms(one, 21, flush)
+            held = sorted({(k["name"].split("(")[0][-48:], k["grid"]) for k in ks})[:4]
+            where = (f"CUDA events, one launch, cold L2: none in a new trace either, which held "
+                     f"{len(ks)} kernels: {held}")
+        print(f"{what}: {d_ms:.4f} ms a launch on the device ({where}), at {b_ms / d_ms:.3f} of "
+              f"the bound {b_ms:.4f} ms  ({card})")
+    UNTRACED.clear()
 
 
 def kernel_trace(fn, reps: int) -> list[dict]:
@@ -3693,6 +3815,454 @@ def ss_minmax(tag: str, dev, card: str, shapes: collections.Counter) -> collecti
     return total
 
 
+# ---------------------------------------------------------------------------
+# the trapdoor, arbitrary-cyclotomic, threshold, witness and packed phases
+# ---------------------------------------------------------------------------
+
+def launches_of(fn):
+    """fn() with the launch counters reset just before and read just after:
+    (its result, the launches of each kernel)."""
+    from fhe_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def td_run(dev) -> tuple:
+    """[td]'s trapdoor and TD_SYNDROMES preimages by each sampler on dev,
+    from SEED + 16: (trapdoor, syndromes, gauss_samp's, gauss_samp_corrected's)."""
+    from fhe_tpu_torch.lattice import trapdoor
+    rng = np.random.default_rng(SEED + 16)
+    td = trapdoor.trapdoor_gen(trapdoor.TrapdoorParams(**TD_CONFIG), rng, device=dev)
+    us = [rng.integers(0, td.params.q, size=td.params.N) for _ in range(TD_SYNDROMES)]
+    return (td, us, [trapdoor.gauss_samp(td, u, rng) for u in us],
+            [trapdoor.gauss_samp_corrected(td, u, rng) for u in us])
+
+
+def td_phase(dev, card: str) -> dict:
+    """[td]: trapdoor_gen and both samplers at TD_CONFIG on the card; every
+    preimage verified, the card byte-equal to the CPU, the corrected
+    sampler's spread within fhe_tpu's bounds; returns the run's launches."""
+    import math as m_
+    from fhe_tpu_torch.lattice import trapdoor
+    tag, t_phase = "[td]", time.perf_counter()
+    params = trapdoor.TrapdoorParams(**TD_CONFIG)
+    print(f"{tag} N = {params.N}, q = {params.q} (STD128's Q, {params.q.bit_length()} bits), "
+          f"base {params.base}: k = {params.k}, a public row of {params.k + 2} polynomials, "
+          f"sigma {params.sigma}")
+    t0 = time.perf_counter()
+    (td, us, xs, xcs), launches = launches_of(lambda: td_run(dev))
+    print(f"{tag} trapdoor_gen and {TD_SYNDROMES} preimages by each sampler on the card: "
+          f"{time.perf_counter() - t0:.3f} s (host clock, with the host draws); launches "
+          f"{nonzero(launches)}")
+    for what, x_all in (("gauss_samp", xs), ("gauss_samp_corrected", xcs)):
+        if not all(trapdoor.verify_preimage(td, x, u) for x, u in zip(x_all, us)):
+            fail(f"{tag} a {what} preimage does not verify")
+    bad = xs[0].clone()
+    bad[2, 0] = (bad[2, 0] + 1) % params.q
+    if trapdoor.verify_preimage(td, bad, us[0]):
+        fail(f"{tag} a changed preimage verified")
+    print(f"{tag} all {2 * TD_SYNDROMES} preimages verify on the card (<A, x> = u mod q); a "
+          f"changed one does not")
+    for name, call in (("gauss_samp", trapdoor.gauss_samp),
+                       ("gauss_samp_corrected", trapdoor.gauss_samp_corrected)):
+        _, one = launches_of(lambda: call(td, us[0], np.random.default_rng(1)))
+        _, ver = launches_of(lambda: trapdoor.verify_preimage(td, xs[0], us[0]))
+        print(f"{tag} kernels 1-2's launches a {name} call: {nonzero(one)}; a verify_preimage: "
+              f"{nonzero(ver)}")
+    t0 = time.perf_counter()
+    c_td, c_us, c_xs, c_xcs = td_run("cpu")
+    for what, a, b in [("a_row", td.a_row, c_td.a_row), ("r", td.pair.r, c_td.pair.r),
+                       ("e", td.pair.e, c_td.pair.e)] + [
+            (f"gauss_samp x{i}", x, c) for i, (x, c) in enumerate(zip(xs, c_xs))] + [
+            (f"gauss_samp_corrected x{i}", x, c) for i, (x, c) in enumerate(zip(xcs, c_xcs))]:
+        if not torch.equal(a.cpu(), b):
+            fail(f"{tag} {what} differs between the card and the CPU")
+    print(f"{tag} the CPU port from the same seed: a_row, r, e and all {2 * TD_SYNDROMES} "
+          f"preimages byte-equal to the card's ({time.perf_counter() - t0:.3f} s on the CPU)")
+    alpha = params.sigma * (params.base + 1)
+    s = alpha * params.sigma * 1.2 * (m_.sqrt(2 * params.N) + m_.sqrt(params.k * params.N) + 4.7)
+    q = params.q
+    for i, x in enumerate(xcs):
+        xc = torch.where(x > q // 2, x - q, x).to(torch.float64)
+        big, std = float(xc.abs().max()), float(xc.std())
+        print(f"{tag} gauss_samp_corrected x{i}: max |x| = {big:.0f} = {big / s:.3f} s, std = "
+              f"{std:.3f} = {std / s:.4f} s (s = {s:.3f}; fhe_tpu's bounds: max < 10 s, "
+              f"0.2 s < std < 3 s)")
+        if not (big < 10 * s and 0.2 * s < std < 3.0 * s):
+            fail(f"{tag} gauss_samp_corrected x{i} outside fhe_tpu's bounds")
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return launches
+
+
+def arb_run(dev) -> dict:
+    """[arb]'s transforms on dev at each length of ARB_MS and ARB_BIG_M:
+    m -> (q, x, its Bluestein DFT and back, a, b, forward_arb(a), its
+    inverse, multiply_arb(a, b))."""
+    from fhe_tpu_torch.math import ntt_arb, primes
+    out = {}
+    for m in (*ARB_MS, ARB_BIG_M):
+        q = primes.first_prime(28, 2 * m)
+        phi = len(ntt_arb.cyclotomic_poly(m)) - 1
+        rng = np.random.default_rng(SEED + m)
+        x = rng.integers(0, q, size=m)
+        a, b = rng.integers(0, q, size=phi), rng.integers(0, q, size=phi)
+        dft = ntt_arb.bluestein_dft(x, m, q, device=dev)
+        back = ntt_arb.bluestein_dft(dft, m, q, inverse=True, device=dev)
+        fa = ntt_arb.forward_arb(a, m, q, device=dev)
+        out[m] = (q, x, dft, back, a, b, fa, ntt_arb.inverse_arb(fa, m, q, device=dev),
+                  ntt_arb.multiply_arb(a, b, m, q, device=dev))
+    return out
+
+
+def mod_prime_cyclotomic(full: np.ndarray, m: int, q: int) -> np.ndarray:
+    """An integer polynomial mod (Phi_m, q) for a prime m, independently of
+    ntt_arb: fold mod X^m - 1, then X^(m-1) = -(1 + ... + X^(m-2))."""
+    c = np.zeros(m, dtype=object)
+    for k in range(0, len(full), m):
+        part = full[k:k + m]
+        c[:len(part)] += part
+    return np.array([int(v) % q for v in c[:m - 1] - c[m - 1]], dtype=np.int64)
+
+
+def arb_phase(dev, card: str) -> dict:
+    """[arb]: Bluestein DFTs, forward_arb / inverse_arb and multiply_arb on
+    the card at ARB_MS (the small-N kernels) against a naive DFT and a
+    schoolbook product, and at ARB_BIG_M (limb-stacked, L = 2^13) the round
+    trip and the product against the exact convolution mod (Phi_m, q);
+    the card byte-equal to the CPU.  Returns the run's launches."""
+    from fhe_tpu_torch.math import ntt_arb
+    tag, t_phase = "[arb]", time.perf_counter()
+    t0 = time.perf_counter()
+    card_out, launches = launches_of(lambda: arb_run(dev))
+    print(f"{tag} m = {ARB_MS} and {ARB_BIG_M} on the card: {time.perf_counter() - t0:.3f} s "
+          f"(host clock, with the exact host arithmetic); launches {nonzero(launches)}")
+    for m, (q, x, dft, back, a, b, fa, inv, prod) in card_out.items():
+        L = 1 << (2 * m - 2 + m - 1).bit_length()
+        if not (np.array_equal(back, x) and np.array_equal(inv, a)):
+            fail(f"{tag} m = {m}: a round trip is not the identity")
+        full = np.convolve(a.astype(object), b.astype(object))
+        if m in ARB_MS:
+            w = pow(ntt_arb.bluestein_plan(m, q).psi, 2, q)
+            naive = [sum(int(x[k]) * pow(w, j * k, q) for k in range(m)) % q for j in range(m)]
+            if [int(v) for v in dft] != naive:
+                fail(f"{tag} m = {m}: the Bluestein DFT differs from the naive DFT")
+            want = ntt_arb._poly_mod_cyclo(full, m, q)
+        else:
+            want = mod_prime_cyclotomic(full, m, q)
+        if not np.array_equal(prod, want):
+            fail(f"{tag} m = {m}: multiply_arb differs from the schoolbook product")
+        print(f"{tag} m = {m}, q = {q}, phi = {len(a)}, convolutions padded to L = {L}: "
+              + ("DFT = the naive DFT, " if m in ARB_MS else "") +
+              f"the DFT and arb round trips exact, multiply_arb = the schoolbook product mod "
+              f"(Phi_m, q)")
+    t0 = time.perf_counter()
+    cpu_out = arb_run("cpu")
+    for m in card_out:
+        for got, want in zip(card_out[m], cpu_out[m]):
+            if not np.array_equal(np.asarray(got), np.asarray(want)):
+                fail(f"{tag} m = {m}: the card differs from the CPU")
+    print(f"{tag} the CPU port: every output at every m byte-equal to the card's "
+          f"({time.perf_counter() - t0:.3f} s on the CPU)")
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return launches
+
+
+class SecretsStream:
+    """A seeded byte stream in place of secrets.token_bytes (the threshold
+    shares and masks, the commitments' randomness), so that the card's and
+    the CPU's runs draw the same bytes."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, n: int) -> bytes:
+        return self.rng.bytes(n)
+
+
+@contextlib.contextmanager
+def secrets_stream(seed: int):
+    import secrets
+    inner = secrets.token_bytes
+    secrets.token_bytes = SecretsStream(seed)
+    try:
+        yield
+    finally:
+        secrets.token_bytes = inner
+
+
+def thr_run(and_out, s, ext, s_n) -> list:
+    """[thr]'s protocol runs on the devices of its inputs, with SEED + 17's
+    secrets stream: additive 3-of-3 with proofs on the AND outputs (secret
+    s), Shamir 2-of-3 on the extended ones (ring secret s_n), each 2-subset;
+    returns every share, partial, proof and combine, in order."""
+    from fhe_tpu_torch.tfhe import threshold as th
+    out = []
+    with secrets_stream(SEED + 17):
+        cfg = th.ThresholdConfig(threshold=3, total_parties=3, scheme="additive")
+        shares, vks = th.generate_key_shares(s, and_out.modulus, cfg)
+        pds = []
+        for sh, vk in zip(shares, vks):
+            pd, pf = th.batch_partial_decrypt(cfg, and_out, sh)
+            ok = th.batch_verify_proofs(cfg, and_out, pd, pf, vk)
+            bad = th.BatchPartialDecryption(pd.party_id, (pd.values + 1) % and_out.modulus,
+                                            pd.batch_commitment)
+            rejected = not th.batch_verify_proofs(cfg, and_out, bad, pf, vk)
+            pds.append(pd)
+            out += [sh.share, sh.commitment, pd.values, pd.batch_commitment, pf.commitments_R,
+                    pf.merkle_root, pf.batch_challenge, pf.response, ok, rejected]
+        out.append(th.batch_combine(cfg, and_out, pds, p=4))
+        cfg = th.ThresholdConfig(threshold=2, total_parties=3, scheme="shamir")
+        shares, vks = th.generate_key_shares(s_n, ext.modulus, cfg)
+        out += [sh.share for sh in shares]
+        for subset in ([0, 1], [0, 2], [1, 2]):
+            out.append(th.threshold_decrypt(cfg, ext, [shares[i] for i in subset], vks, p=4))
+    return out
+
+
+def thr_phase(dev, card: str, ctx, sk, key, cts) -> dict:
+    """[thr]: threshold decryption of 4096 STD128 AND outputs of [main]'s
+    key, additive 3-of-3 with proofs (each verified, a tampered partial
+    rejected), and Shamir 2-of-3 on 4096 extended outputs under the key's
+    ring secret (bt_key_gen's first draw, made again from SEED); 0 wrong;
+    the CPU port's calls on the same ciphertexts copied to the host, with
+    the same secrets stream, byte-equal.  Returns the run's launches."""
+    tag, t_phase = "[thr]", time.perf_counter()
+    ct1, ct2 = cts[0], cts[1]
+    truth = (ctx.decrypt(sk, ct1) & ctx.decrypt(sk, ct2)).cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    ctx.key_gen(rng)
+    sk_n = ctx.key_gen_n(rng)           # bt_key_gen's first draw after sk
+    t0 = time.perf_counter()
+
+    def run():
+        and_out = ctx.eval_bin_gate(key, "AND", ct1, ct2)
+        ext = ctx.eval_bin_gate(key, "AND", ct1, ct2, extended=True)
+        return and_out, ext, thr_run(and_out, sk.s, ext, sk_n.s)
+    (and_out, ext, got), launches = launches_of(run)
+    print(f"{tag} AND and extended AND (N = {ext.n}, modulus {ext.modulus}) of [main]'s {BATCH} "
+          f"pairs, 3-of-3 additive with proofs and Shamir 2-of-3 of each subset on the card: "
+          f"{time.perf_counter() - t0:.3f} s (host clock, with the hashing); launches "
+          f"{nonzero(launches)}")
+    checks = got[:30]
+    for i in range(3):
+        if not checks[10 * i + 8]:
+            fail(f"{tag} party {i + 1}'s proof does not verify")
+        if not checks[10 * i + 9]:
+            fail(f"{tag} party {i + 1}'s tampered partial was not rejected")
+    print(f"{tag} additive 3-of-3: every proof verifies, every tampered partial (values + 1) is "
+          f"rejected")
+    for what, m in [("additive 3-of-3 combine", got[30])] + [
+            (f"Shamir 2-of-3 subset {sub}", got[34 + i])
+            for i, sub in enumerate(([1, 2], [1, 3], [2, 3]))]:
+        wrong = int((m.cpu().numpy() != truth).sum())
+        print(f"{tag} {what}: {wrong} wrong of {BATCH}")
+        if wrong:
+            fail(f"{tag} {what} does not decrypt to the AND truth table")
+    t0 = time.perf_counter()
+    on_cpu = thr_run(and_out.to("cpu"), sk.s.cpu(), ext.to("cpu"), sk_n.s.cpu())
+    for i, (a, b) in enumerate(zip(got, on_cpu)):
+        same = torch.equal(a.cpu(), b) if isinstance(a, torch.Tensor) else a == b
+        if not same:
+            fail(f"{tag} output {i} of the protocol differs between the card and the CPU")
+    print(f"{tag} the CPU port's threshold calls on the ciphertexts copied to the host, same "
+          f"secrets stream: all {len(got)} shares, partials, commitments, proofs and combines "
+          f"byte-equal ({time.perf_counter() - t0:.3f} s on the CPU)")
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return launches
+
+
+def adder(ctx, key, wb, zkp, a_idx, b_idx, a_cts, b_cts):
+    """An 8-bit ripple-carry adder of STD128 gates at batch 1, every gate
+    recorded by the WitnessBuilder wb; returns the sum's bits (LSB first,
+    the carry last) and their table indices."""
+    gates = {"AND": zkp.GateType.AND, "OR": zkp.GateType.OR, "XOR": zkp.GateType.XOR}
+
+    def gate(name, x, y):
+        out = ctx.eval_bin_gate(key, name, x[0], y[0])
+        return out, wb.record_gate(gates[name], [x[1], y[1]], out)
+    outs, carry = [], None
+    for i in range(len(a_cts)):
+        x, y = (a_cts[i], a_idx[i]), (b_cts[i], b_idx[i])
+        t = gate("XOR", x, y)
+        if carry is None:
+            outs.append(t)
+            carry = gate("AND", x, y)
+            continue
+        outs.append(gate("XOR", t, carry))
+        carry = gate("OR", gate("AND", x, y), gate("AND", t, carry))
+    return outs + [carry]
+
+
+def zkp_phase(dev, card: str, ctx, sk, key) -> dict:
+    """[zkp]: an 8-bit ripple-carry adder of STD128 gates at batch 1 on the
+    card, recorded by a WitnessBuilder (security parameter 80): the sum
+    right, the witness verified, a tampered gate and a wrong root rejected,
+    every sampled gate replayed on the card from its opened inputs to the
+    committed output bytes.  Returns the adder's launches."""
+    import copy
+    from fhe_tpu_torch.tfhe import lwe, zkp
+    tag, t_phase = "[zkp]", time.perf_counter()
+    rng = np.random.default_rng(SEED + 18)
+    va, vb = (int(v) for v in rng.integers(0, 1 << ZKP_BITS, size=2))
+    a_cts = [ctx.encrypt(sk, np.array([va >> i & 1]), rng) for i in range(ZKP_BITS)]
+    b_cts = [ctx.encrypt(sk, np.array([vb >> i & 1]), rng) for i in range(ZKP_BITS)]
+    with secrets_stream(SEED + 19):
+        wb = zkp.WitnessBuilder(f"ripple-carry-{ZKP_BITS}")
+        a_idx = [wb.register_input(c) for c in a_cts]
+        b_idx = [wb.register_input(c) for c in b_cts]
+        t0 = time.perf_counter()
+        outs, launches = launches_of(lambda: adder(ctx, key, wb, zkp, a_idx, b_idx, a_cts, b_cts))
+        circuit_s = time.perf_counter() - t0
+        for _, idx in outs:
+            wb.mark_output(idx)
+        t0 = time.perf_counter()
+        w = wb.build()
+        build_s = time.perf_counter() - t0
+    got = sum(int(ctx.decrypt(sk, c)[0]) << i for i, (c, _) in enumerate(outs))
+    n_gates = len(wb.gates) - 2 * ZKP_BITS - len(outs)
+    print(f"{tag} {va} + {vb} = {got} ({n_gates} STD128 gates at batch 1, recorded: "
+          f"{circuit_s:.3f} s host clock; launches {nonzero(launches)}); witness of "
+          f"{w.num_gates} records and {w.num_ciphertexts} ciphertexts, "
+          f"{len(w.verification_points)} gates sampled, built in {build_s:.3f} s")
+    if got != va + vb:
+        fail(f"{tag} the adder's sum decrypts to {got}, not {va + vb}")
+    verifier = zkp.WitnessVerifier()
+    if not verifier.verify(w):
+        fail(f"{tag} the witness does not verify")
+    bad = copy.deepcopy(w)
+    g = bad.verification_points[0].gate
+    g.type = zkp.GateType.OR if g.type != zkp.GateType.OR else zkp.GateType.AND
+    wrong_root = copy.deepcopy(w)
+    wrong_root.ciphertext_root = bytes(32)
+    if verifier.verify(bad) or verifier.verify(wrong_root):
+        fail(f"{tag} a tampered gate record or a wrong root verified")
+    print(f"{tag} the witness verifies; a tampered gate record and a wrong ciphertext root are "
+          f"rejected")
+    names = {zkp.GateType.AND: "AND", zkp.GateType.OR: "OR", zkp.GateType.XOR: "XOR"}
+
+    def from_bytes(blob: bytes):
+        words = np.frombuffer(blob, dtype="<u8").astype(np.int64)
+        return lwe.LweCiphertext(a=torch.from_numpy(words[None, :-2].astype(np.int32)).to(dev),
+                                 b=torch.from_numpy(words[None, -2].astype(np.int32)).to(dev),
+                                 modulus=int(words[-1]))
+    t0 = time.perf_counter()
+    for vp in w.verification_points:
+        replay = lambda ins, t=vp.gate.type: zkp._ct_bytes(
+            ctx.eval_bin_gate(key, names[t], *(from_bytes(b) for b in ins)), 0)
+        ok = verifier.verify_gate_recomputation(
+            w, vp, replay, [wb.table.opening(i) for i in vp.gate.input_indices],
+            wb.table.opening(vp.gate.output_index))
+        if not ok:
+            fail(f"{tag} sampled gate {vp.gate_index} does not replay to its committed output")
+    print(f"{tag} all {len(w.verification_points)} sampled gates replayed on the card from their "
+          f"opened inputs: each gives its committed output bytes ({time.perf_counter() - t0:.3f} "
+          f"s host clock)")
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return launches
+
+
+def pack_phase(dev, card: str, ctx, key, cts) -> dict:
+    """[pack]: STD128's bootstrap and switching keys packed and unpacked on
+    the card, a batch-4096 AND through the unpacked key byte-identical to
+    the AND through the key itself, and the LWE batch round trip in both
+    layouts.  Returns the AND's launches."""
+    from fhe_tpu_torch.tfhe import packed
+    tag, t_phase = "[pack]", time.perf_counter()
+    p = ctx.params
+    t0 = time.perf_counter()
+    blob = packed.pack_bsk(p, key)
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    key2 = packed.unpack_bsk(p, blob, device=dev)
+    torch.cuda.synchronize()
+    unpack_s = time.perf_counter() - t0
+    ksk2, q_ks = packed.unpack_switching_key(packed.pack_switching_key(key.ksk, p.q_ks),
+                                             device=dev)
+    if not (torch.equal(key2.bsk, key.bsk) and torch.equal(key2.ksk.a, key.ksk.a) and
+            torch.equal(ksk2.b, key.ksk.b) and q_ks == p.q_ks):
+        fail(f"{tag} the unpacked keys differ from the keys")
+    print(f"{tag} STD128 bootstrap key (with its switching key) packed to {len(blob)} bytes in "
+          f"{pack_s:.3f} s and unpacked onto the card in {unpack_s:.3f} s (host clock); equal")
+    ct1, ct2 = cts[0], cts[1]
+    want = ctx.eval_bin_gate(key, "AND", ct1, ct2)
+    got, launches = launches_of(lambda: ctx.eval_bin_gate(key2, "AND", ct1, ct2))
+    if not (torch.equal(got.a, want.a) and torch.equal(got.b, want.b)):
+        fail(f"{tag} the AND through the unpacked key differs")
+    print(f"{tag} AND at batch {BATCH} through the unpacked key: byte-identical to the AND "
+          f"through the key; launches {nonzero(launches)}")
+    for flags, what in ((packed.LWE_PACK_DEFAULT, "sequential"),
+                        (packed.LWE_PACK_INTERLEAVED, "interleaved")):
+        back = packed.unpack_lwe_batch(packed.pack_lwe_batch(ct1, flags), device=dev)
+        if not (torch.equal(back.a, ct1.a) and torch.equal(back.b, ct1.b) and
+                (back.modulus, back.pt_mod) == (ct1.modulus, ct1.pt_mod)):
+            fail(f"{tag} the {what} LWE batch round trip differs")
+    print(f"{tag} LWE batch of {BATCH} packed and unpacked, sequential and interleaved: equal")
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return launches
+
+
+def time_single_ntt(dev, shapes: collections.Counter, errors: Errors, card: str) -> dict:
+    """Kernels 1-2 single-modulus at each (kernel, [rows, N]) that [td] and
+    [arb] launched (under one of the moduli they launched it with), cold
+    L2: byte-equal to the plain versions, beside their bound and the plain
+    time; returns the small-N kernels' times at their largest N for the
+    kernels line."""
+    from fhe_tpu_torch.math import ntt
+    from fhe_tpu_torch.profile_ntt import FLUSH_WORDS, time_cold_ms
+    flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=dev)
+    int_peak = int_multiply_peak(dev)
+    rng = np.random.default_rng(SEED + 20)
+    by_shape = collections.defaultdict(lambda: [0, None])    # (kernel, shape) -> [launches, a q]
+    for (name, shape, q), n in shapes.items():
+        by_shape[(name, shape)][0] += n
+        by_shape[(name, shape)][1] = by_shape[(name, shape)][1] or q
+    result = {}
+    for (name, (rows, N)), (n, q) in sorted(by_shape.items()):
+        plan = ntt.make_plan(N, q, dev)
+        x = _residues(rng, plan.q, (rows, N), dev)
+        inverse = name.startswith("ntt_inverse")
+        kern = (lambda: ntt.ntt_inverse(plan, x)) if inverse else (lambda: ntt.ntt_forward(plan, x))
+        plain = ((lambda: ntt.inverse_butterfly(plan, x)) if inverse else
+                 (lambda: ntt.forward_butterfly(plan, x)))
+        errors.compare(name, kern(), plain(), f"[td]/[arb] {name} [{rows}, {N}]", show=False)
+        k_ms, p_ms = time_cold_ms(kern, 21, flush), time_cold_ms(plain, 5, flush)
+        muls = 3 * (N // 2 * plan.logN + (N if inverse else 0)) * rows
+        b_ms, b_by = bound(_nbytes(x, x, plan.fwd_w, plan.fwd_ws), muls, int_peak)
+        print(f"[time] {name} [{rows}, {N}] (q = {q}), cold L2: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.3e} ms by {b_by}, kernel at {b_ms / k_ms:.3e} of its "
+              f"bound; {n} launches in [td] and [arb]  ({card})")
+        if name.endswith("_small") and (name not in result or N >= result[name][4]):
+            result[name] = (k_ms, p_ms, b_ms, b_by, N)
+    return {name: r[:4] for name, r in result.items()}
+
+
+def slice_phases(dev, errors: Errors, card: str, ctx, sk, key, cts) -> tuple[list, dict]:
+    """[td], [arb], [thr], [zkp] and [pack]: their launches; the times of
+    kernels 1-2 at every shape [td] and [arb] launched them at, and the
+    small-N kernels' for the kernels line."""
+    t0 = time.perf_counter()
+    with single_launch_shapes() as single, limb_launch_shapes() as limbs:
+        launches = [td_phase(dev, card), arb_phase(dev, card)]
+    for name in SMALL_KERNELS:
+        if not launches[1][name]:
+            fail(f"[arb] kernel {name} was not launched")
+    launches += [thr_phase(dev, card, ctx, sk, key, cts), zkp_phase(dev, card, ctx, sk, key),
+                 pack_phase(dev, card, ctx, key, cts)]
+    times = time_single_ntt(dev, single, errors, card)
+    limb_kernels_at("[arb]", "[arb] phase", dev, limbs, {}, errors, int_multiply_peak(dev), card)
+    retrace_untraced(dev, card)
+    print(f"[td] + [arb] + [thr] + [zkp] + [pack] took {time.perf_counter() - t0:.3f} s "
+          f"(host clock)")
+    return launches, times
+
+
 def time_ms(fn, reps: int) -> float:
     """Median CUDA-event time of fn() in ms; the caller has warmed fn up."""
     times = []
@@ -3912,6 +4482,7 @@ def phases(dev, card: str, small_cpu) -> list[dict]:
     launches.update({name: rns_launches[name] for name in LIMB_KERNELS})
     radix_launches, radix_times = radix_phase(dev, errors, card)
     launches.update(radix_launches)
+    launches.update({name: 0 for name in SMALL_KERNELS})
     ckks_launches = ckks_phase(dev, errors, card)
     bfv_launches = bfv_phase(dev, errors, card)
     bgv_launches = bgv_phase(dev, errors, card)
@@ -3936,9 +4507,14 @@ def phases(dev, card: str, small_cpu) -> list[dict]:
     for name in KERNELS:
         launches[name] += ss["launches"][name]
         errors.max[name] = max(errors.max[name], ss["errors"][name])
+    retrace_untraced(dev, card)
+    slice_launches, small_times = slice_phases(dev, errors, card, ctx, sk, key, cts)
+    for name in KERNELS:
+        launches[name] += sum(n[name] for n in slice_launches)
     times = timings(dev, ctx, key, cts, errors, card)
     times.update(rns_times)
     times.update(radix_times)
+    times.update(small_times)
     return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name], "max_abs_err": errors.max[name],
              "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],

@@ -12,7 +12,9 @@ bootstrap shares (`int_boot_shares`); joint keys are `eval_key` /
 `rlwe_public_key` of their arrays.  Functional bootstrapping's schemelet
 ciphertext (`rlwe_mp_ciphertext`, Python integers on the host in both
 packages) and setup (`fbt_precom`, numpy in both), and scheme switching's
-keys (`ckks_to_fhew_key`, `fhew_to_ckks_key`).
+keys (`ckks_to_fhew_key`, `fhew_to_ckks_key`).  An RLWE trapdoor
+(`trapdoor`: its public row, (r, e) and parameters) and a threshold key
+share (`key_share`).
 Residues are uint32 below 2^31 in fhe_tpu and int32 here; the secret key
 is small signed integers in both.  The tensors go to the first CUDA card
 unless the caller names another device.
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from .lattice.rns import EVAL, RnsPoly
+from .lattice.trapdoor import RlweTrapdoorPair, TrapdoorOutput, TrapdoorParams
 from .pke import rlwe
 from .pke.bfv import Ciphertext as BfvCiphertext
 from .pke.bgv import Ciphertext as BgvCiphertext
@@ -37,6 +40,7 @@ from .tfhe.radix import RadixInt, RadixParams
 from .tfhe.rgsw import BootstrapKey
 from .tfhe.rgsw_rns import RnsKey
 from .tfhe.shortint import ShortIntParams
+from .tfhe.threshold import KeyShare
 
 
 def _residues(x, name: str, device) -> torch.Tensor:
@@ -271,3 +275,31 @@ def fhew_to_ckks_key(enc_c0, enc_c1, moduli, scale: float, rot_keys: dict, bsgs_
     scale) and the rotation keys as for ckks_to_fhew_key."""
     return FhewToCkksKey(enc_sk=ckks_ciphertext(enc_c0, enc_c1, moduli, scale, device=device),
                          rot_keys=dict(rot_keys), bsgs_g=int(bsgs_g))
+
+
+def _ints(x, name: str, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.kind not in "iu":
+        raise TypeError(f"{name} must hold integers, got {x.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(x).astype(np.int64)).to(device)
+
+
+def trapdoor(a_row, r, e, N: int, q: int, base: int = 2, sigma: float = 3.19,
+             device="cuda") -> TrapdoorOutput:
+    """fhe_tpu TrapdoorOutput (a_row [k+2, N] mod q; pair.r, pair.e [k, N]
+    signed; params N, q, base, sigma) -> TrapdoorOutput."""
+    params = TrapdoorParams(N=int(N), q=int(q), base=int(base), sigma=float(sigma))
+    a_row, r, e = (_ints(x, name, device) for x, name in ((a_row, "a_row"), (r, "r"), (e, "e")))
+    k = params.k
+    if tuple(a_row.shape) != (k + 2, params.N) or tuple(r.shape) != (k, params.N) or \
+            tuple(e.shape) != (k, params.N):
+        raise ValueError(f"a trapdoor at N = {params.N}, k = {k} has a_row [{k + 2}, {params.N}] "
+                         f"and r, e [{k}, {params.N}]; got {tuple(a_row.shape)}, "
+                         f"{tuple(r.shape)}, {tuple(e.shape)}")
+    return TrapdoorOutput(a_row=a_row, pair=RlweTrapdoorPair(r=r, e=e), params=params)
+
+
+def key_share(party_id: int, share, commitment: bytes, device="cuda") -> KeyShare:
+    """fhe_tpu KeyShare (party_id, share [dim] uint64 mod q, commitment) -> KeyShare."""
+    return KeyShare(int(party_id), _residues(share, "share", device).to(torch.int64),
+                    bytes(commitment))

@@ -1,7 +1,8 @@
 // C entry points of the NTT kernels (ntt.cuh), single-modulus and
 // limb-stacked: each dispatches on N over the shapes of ntt_shapes.h and on
 // the arithmetic (lazy where every q < 2^30, chosen by the caller) to the
-// instantiation compiled from ntt_inst.cu.
+// instantiation compiled from ntt_inst.cu; the single-modulus ones also
+// over FHE_NTT_SMALL_SHAPES to the small-N kernels of ntt_small.cu.
 // An N with no instantiation returns cudaErrorInvalidValue without
 // launching; the Python wrappers (kernels/ntt.py) raise before they get
 // here.  Also the library's error strings.
@@ -42,6 +43,13 @@ int fhe_ntt_forward(const void* x, void* y, const void* w, const void* ws, int r
   }
   FHE_NTT_SHAPES(FHE_FWD_CASE)
 #undef FHE_FWD_CASE
+#define FHE_FWD_SMALL_CASE(L)                                                       \
+  if (N == (1 << L)) {                                                              \
+    return out_br ? fhe::ntt::launch_forward_small<L, true>(args, s)                \
+                  : fhe::ntt::launch_forward_small<L, false>(args, s);              \
+  }
+  FHE_NTT_SMALL_SHAPES(FHE_FWD_SMALL_CASE)
+#undef FHE_FWD_SMALL_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -60,6 +68,10 @@ int fhe_ntt_inverse(const void* x, void* y, const void* w, const void* ws, int r
   }
   FHE_NTT_SHAPES(FHE_INV_CASE)
 #undef FHE_INV_CASE
+#define FHE_INV_SMALL_CASE(L) \
+  if (N == (1 << L)) return fhe::ntt::launch_inverse_small<L>(args, s);
+  FHE_NTT_SMALL_SHAPES(FHE_INV_SMALL_CASE)
+#undef FHE_INV_SMALL_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -125,6 +137,10 @@ int fhe_ntt_rows_per_block(int N) {
   if (N == (1 << L)) return fhe::ntt::kRows<L>;
   FHE_NTT_SHAPES(FHE_ROWS_CASE)
 #undef FHE_ROWS_CASE
+#define FHE_SMALL_ROWS_CASE(L) \
+  if (N == (1 << L)) return fhe::ntt::kSmallRows<L>;
+  FHE_NTT_SMALL_SHAPES(FHE_SMALL_ROWS_CASE)
+#undef FHE_SMALL_ROWS_CASE
   return 0;
 }
 

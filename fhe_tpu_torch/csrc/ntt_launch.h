@@ -92,5 +92,19 @@ int launch_forward_limbs(const LimbArgs& args, cudaStream_t stream);
 template <int LogN, bool kLazy>
 int launch_inverse_limbs(const LimbArgs& args, cudaStream_t stream);
 
+// The small-N kernels (ntt_small.cu) for N = 2^3..2^8 (ntt_shapes.h
+// FHE_NTT_SMALL_SHAPES), single-modulus only: kSmallThreads threads a block,
+// N/2 on each row (one butterfly a stage each), so kSmallRows rows a block.
+// Canonical arithmetic at every q < 2^31 (the lazy flag is not read).
+constexpr int kSmallThreads = 256;
+template <int LogN>
+constexpr int kSmallRows = 2 * kSmallThreads >> LogN;
+
+template <int LogN, bool kOutBr>
+int launch_forward_small(const Args& args, cudaStream_t stream);
+
+template <int LogN>
+int launch_inverse_small(const Args& args, cudaStream_t stream);
+
 }  // namespace ntt
 }  // namespace fhe

@@ -9,7 +9,8 @@
 // row one block holds (ntt_word's swizzles, the three middle rounds of
 // mid_rounds, 128 KiB of dynamic shared memory); 2^16 runs as two 2^15
 // halves after its first stage (ntt_launch.h kSplitLogN), and is the
-// largest the design takes.
+// largest the design takes.  Below 2^9 the exchange-buffer swizzles do not
+// apply: those N are FHE_NTT_SMALL_SHAPES' kernels.
 #pragma once
 
 #define FHE_NTT_SHAPES(X) \
@@ -21,3 +22,17 @@
   X(14)                   \
   X(15)                   \
   X(16)
+
+// The log2 N of the small-N kernels (ntt_small.cu: one shared-memory row
+// per N/2 threads, several rows a block), for fhe_tpu's smallest rings:
+// 2^3 (the least N fhe_tpu's make_plan takes) to 2^8, the trapdoor's and
+// the Bluestein transforms' padded lengths (math/ntt_arb.py
+// _exact_linconv: 2^5 to 2^7 at fhe_tpu's test lengths).  The same three
+// readers as FHE_NTT_SHAPES; the build compiles ntt_small.cu once for all.
+#define FHE_NTT_SMALL_SHAPES(X) \
+  X(3)                          \
+  X(4)                          \
+  X(5)                          \
+  X(6)                          \
+  X(7)                          \
+  X(8)

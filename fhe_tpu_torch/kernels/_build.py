@@ -4,7 +4,8 @@ The sources in `csrc/` are compiled by `nvcc` for Hopper (`sm_90a`) into ONE
 shared library with a plain C interface, loaded with `ctypes`.  Each
 translation unit is compiled by its own `nvcc`, all started together:
 `ntt.cu` and `blind_rotate.cu` (the C entry points), `ntt_inst.cu` once per
-N of `csrc/ntt_shapes.h` (`-DFHE_NTT_LOGN=..`) and `blind_rotate_inst.cu`
+N of `csrc/ntt_shapes.h` (`-DFHE_NTT_LOGN=..`), `ntt_small.cu` once for
+that file's small N, and `blind_rotate_inst.cu`
 once per shape of `csrc/cggi_shapes.h` (`-DFHE_INST_LOGN=..
 -DFHE_INST_DG2=..`); one more `nvcc` links them.  The build runs at first
 use, into `fhe_tpu_torch/_build/<hash>/`, keyed by a hash of the sources and
@@ -90,12 +91,32 @@ def shapes() -> tuple[tuple[int, int], ...]:
                  for log_n, dg2 in re.findall(r"X\((\d+),\s*(\d+)\)", text))
 
 
+def _macro_list(text: str, macro: str) -> tuple[int, ...]:
+    """The X(..) arguments of `#define macro(X)`, up to its last line."""
+    body = re.search(rf"#define {macro}\(X\)((?:[^\n]*\\\n)*[^\n]*)", text).group(1)
+    return tuple(int(v) for v in re.findall(r"X\((\d+)\)", body))
+
+
+@functools.lru_cache(maxsize=None)
+def ntt_large_sizes() -> tuple[int, ...]:
+    """The N of the NTT kernels of `csrc/ntt.cuh` (single-modulus and
+    limb-stacked), from `csrc/ntt_shapes.h` FHE_NTT_SHAPES (no build needed)."""
+    text = (CSRC / "ntt_shapes.h").read_text()
+    return tuple(1 << v for v in _macro_list(text, "FHE_NTT_SHAPES"))
+
+
+@functools.lru_cache(maxsize=None)
+def ntt_small_sizes() -> tuple[int, ...]:
+    """The N of the small-N kernels of `csrc/ntt_small.cu` (single-modulus),
+    from `csrc/ntt_shapes.h` FHE_NTT_SMALL_SHAPES (no build needed)."""
+    text = (CSRC / "ntt_shapes.h").read_text()
+    return tuple(1 << v for v in _macro_list(text, "FHE_NTT_SMALL_SHAPES"))
+
+
 @functools.lru_cache(maxsize=None)
 def ntt_sizes() -> tuple[int, ...]:
-    """The N the NTT kernels are instantiated for, from `csrc/ntt_shapes.h`
-    (no build needed)."""
-    text = (CSRC / "ntt_shapes.h").read_text()
-    return tuple(1 << int(log_n) for log_n in re.findall(r"X\((\d+)\)", text))
+    """Every N a single-modulus NTT kernel is instantiated for, ascending."""
+    return tuple(sorted(ntt_small_sizes() + ntt_large_sizes()))
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,8 +137,9 @@ def max_limbs() -> int:
 
 def units() -> list[tuple[str, Path, tuple[str, ...]]]:
     """(object name, source, extra nvcc flags) of every translation unit."""
-    out = [("ntt", CSRC / "ntt.cu", ()), ("blind_rotate", CSRC / "blind_rotate.cu", ())]
-    for N in ntt_sizes():
+    out = [("ntt", CSRC / "ntt.cu", ()), ("blind_rotate", CSRC / "blind_rotate.cu", ()),
+           ("ntt_small", CSRC / "ntt_small.cu", ())]
+    for N in ntt_large_sizes():
         out.append((f"ntt_n{N}", CSRC / "ntt_inst.cu", (f"-DFHE_NTT_LOGN={N.bit_length() - 1}",)))
     for N, dg2 in shapes():
         out.append((f"cggi_n{N}_dg{dg2}", CSRC / "blind_rotate_inst.cu",

@@ -7,17 +7,21 @@ The plain PyTorch versions are `math.ntt.forward_butterfly` /
 `inverse_butterfly`; `math.ntt.ntt_forward` / `ntt_inverse` take them for a
 CPU tensor and these wrappers for a CUDA one.
 
-The kernels are compiled for the N of `sizes()` (`csrc/ntt_shapes.h`);
+The kernels are compiled for the N of `sizes()` (`csrc/ntt_shapes.h`):
+2^3 to 2^8 by the small-N kernels (`csrc/ntt_small.cu`, counted as
+`ntt_forward_small` / `ntt_inverse_small`), 2^9 to 2^16 by `csrc/ntt.cuh`'s;
 `check_n` raises ValueError for any other N, before any launch, and runs
 without a card.  They take any NTT prime q < 2^31: lazy butterflies where
-q < 2^30 (4q < 2^32), canonical ones above, chosen here from `plan.q`.
-Each wrapper checks its input, launches on the current stream without
-synchronising, and adds one to its entry of `LAUNCHES` per launch.
+q < 2^30 (4q < 2^32), canonical ones above, chosen here from `plan.q` (the
+small-N kernels are canonical at every q).  Each wrapper checks its input,
+launches on the current stream without synchronising, and adds one to its
+entry of `LAUNCHES` per launch.
 
 `forward_limbs` / `inverse_limbs` run the same kernels' rows over an RNS
 ring element [rows, L, N] in one launch: row r, limb l, with limb l's
 modulus, table and scale (`lattice.rns.RnsPlan`), for 1 to `max_limbs()`
-limbs (`check_limbs` raises ValueError otherwise, without a card), lazy
+limbs at the N of `limb_sizes()` (`check_limbs` raises ValueError
+otherwise, without a card), lazy
 only where every limb is below 2^30.  Their plain versions are
 `lattice.rns.forward_plain` / `inverse_plain`.
 
@@ -38,9 +42,12 @@ import torch
 
 from . import _build
 from ._build import max_limbs
+from ._build import ntt_large_sizes as limb_sizes
 from ._build import ntt_sizes as sizes
+from ._build import ntt_small_sizes as small_sizes
 
-LAUNCHES = {"ntt_forward": 0, "ntt_inverse": 0, "ntt_forward_limbs": 0, "ntt_inverse_limbs": 0}
+LAUNCHES = {"ntt_forward": 0, "ntt_inverse": 0, "ntt_forward_limbs": 0, "ntt_inverse_limbs": 0,
+            "ntt_forward_small": 0, "ntt_inverse_small": 0}
 LAZY_Q = 1 << 30
 SPLIT_N = 1 << 16
 
@@ -170,7 +177,7 @@ def forward(plan, x: torch.Tensor, out_br: bool = False) -> torch.Tensor:
                              ws.data_ptr(), x.shape[0], plan.N, plan.q,
                              int(out_br), int(plan.q < LAZY_Q), _build.stream_handle(x.device))
     _build.check(rc, "fhe_ntt_forward")
-    LAUNCHES["ntt_forward"] += 1
+    LAUNCHES["ntt_forward_small" if plan.N in small_sizes() else "ntt_forward"] += 1
     return y
 
 
@@ -185,14 +192,17 @@ def inverse(plan, x: torch.Tensor) -> torch.Tensor:
                              plan.ninv, plan.ninv_s, *_scale(plan.N, plan.q, plan.psi, plan.ninv),
                              int(plan.q < LAZY_Q), _build.stream_handle(x.device))
     _build.check(rc, "fhe_ntt_inverse")
-    LAUNCHES["ntt_inverse"] += 1
+    LAUNCHES["ntt_inverse_small" if plan.N in small_sizes() else "ntt_inverse"] += 1
     return y
 
 
 def check_limbs(plan) -> None:
-    """ValueError unless the limb-stacked kernels take the RNS plan: an
-    instantiated N and 1 to max_limbs() limbs."""
+    """ValueError unless the limb-stacked kernels take the RNS plan: an N of
+    limb_sizes() and 1 to max_limbs() limbs."""
     check_n(plan.N)
+    if plan.N not in limb_sizes():
+        raise ValueError(f"the limb-stacked NTT kernels take N in {list(limb_sizes())}, got "
+                         f"{plan.N} (the small-N kernels are single-modulus)")
     if not 1 <= plan.L <= max_limbs():
         raise ValueError(f"the limb-stacked NTT kernels take 1 to {max_limbs()} limbs, "
                          f"got {plan.L} (csrc/ntt_launch.h kMaxLimbs)")

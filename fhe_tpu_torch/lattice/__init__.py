@@ -1,6 +1,7 @@
-"""Lattice layer: the RNS ring (`rns`) and the HE-standard security
-tables (`stdparams`)."""
+"""Lattice layer: the RNS ring (`rns`), the HE-standard security
+tables (`stdparams`), RLWE trapdoors and preimage sampling (`trapdoor`)
+and the power-of-2 cyclotomic field over doubles (`field2n`)."""
 
-from . import rns, stdparams
+from . import field2n, rns, stdparams, trapdoor
 
-__all__ = ["rns", "stdparams"]
+__all__ = ["field2n", "rns", "stdparams", "trapdoor"]

@@ -498,3 +498,34 @@ def from_bigint(vals, moduli: tuple, N: int, fmt: str = COEFF, device="cuda") ->
         raise ValueError(f"from_bigint needs [..., {N}] integers, got {arr.shape}")
     limbs = np.stack([(arr % q).astype(np.int64) for q in moduli], axis=-2)
     return RnsPoly(torch.from_numpy(limbs.astype(np.int32)).to(device), tuple(moduli), fmt)
+
+
+def negacyclic_product(a, b, moduli: tuple, device="cuda") -> np.ndarray:
+    """The negacyclic product of integer vectors a and b (length N, a power
+    of two) mod P = prod(moduli), as Python ints in [0, P) (object array):
+    the integer product itself where its coefficients lie in [0, P), and
+    the centred one, after centring, where they lie within P/2.
+
+    Forward NTTs of a and b mod each modulus (NTT primes below 2^31 for
+    N), a pointwise product, an inverse NTT and the CRT on the host.  At an
+    N the limb-stacked kernels take (`kernels.ntt.limb_sizes()`), a and b
+    go through one limb-stacked launch each way over all moduli together;
+    below it (the small-N kernels, single-modulus), one launch each way a
+    modulus, a and b stacked.  The plain versions for a CPU device.  The
+    one exact-product helper of `pke/fbt.py` (the schemelet's
+    `_negacyclic_mul`) and `math/ntt_arb.py` (`_exact_linconv`)."""
+    from ..kernels import ntt as kntt
+    ab = np.stack([np.asarray(a, dtype=object), np.asarray(b, dtype=object)])
+    N = ab.shape[-1]
+    moduli = tuple(int(q) for q in moduli)
+    if N in kntt.limb_sizes():
+        e = to_eval(from_bigint(ab, moduli, N, device=device))
+        prod = mul(RnsPoly(e.data[0], moduli, EVAL), RnsPoly(e.data[1], moduli, EVAL))
+        return to_bigint(to_coeff(prod))
+    limbs = []
+    for q in moduli:
+        plan = nttmod.make_plan(N, q, device)
+        e = nttmod.ntt_forward(plan, torch.from_numpy((ab % q).astype(np.int64)).to(
+            device=device, dtype=torch.int32))
+        limbs.append(nttmod.ntt_inverse(plan, nttmod.pointwise_mul(plan, e[0], e[1])))
+    return to_bigint(RnsPoly(torch.stack(limbs, dim=-2), moduli, COEFF))

@@ -1,6 +1,8 @@
-"""Ring arithmetic: primes, modular arithmetic, negacyclic NTT; function
-approximation (Chebyshev and Hermite coefficients, host numpy)."""
+"""Ring arithmetic: primes, modular arithmetic, negacyclic NTT, the
+Bluestein and arbitrary-cyclotomic transforms (`ntt_arb`); host numpy:
+function approximation (Chebyshev and Hermite coefficients), samplers,
+the complex DFT and matrices over Z_q."""
 
-from . import approx, modmath, ntt, primes
+from . import approx, dft, matrix, modmath, ntt, ntt_arb, primes, samplers
 
-__all__ = ["approx", "modmath", "ntt", "primes"]
+__all__ = ["approx", "dft", "matrix", "modmath", "ntt", "ntt_arb", "primes", "samplers"]

@@ -272,8 +272,10 @@ def _negacyclic_mul(a: np.ndarray, b: np.ndarray, device="cuda") -> np.ndarray:
     NTTs: every coefficient of a*b lies within N max|a| max|b|, so forward
     NTTs of a and b over enough primes (q = 1 mod 2^17, below 2^31) to
     exceed twice that, a pointwise product and an inverse NTT give its
-    residues, and the centred CRT gives the integers themselves.  On a
-    CUDA device the NTTs are kernels 1-2 (one limb-stacked launch each)."""
+    residues, and the centred CRT gives the integers themselves
+    (`rns.negacyclic_product`, shared with math/ntt_arb.py).  On a CUDA
+    device the NTTs are kernels 1-2 (one limb-stacked launch each way for
+    a and b together; one launch each way a prime below N = 512)."""
     a = np.asarray(a, dtype=object)
     b = np.asarray(b, dtype=object)
     N = len(a)
@@ -285,9 +287,7 @@ def _negacyclic_mul(a: np.ndarray, b: np.ndarray, device="cuda") -> np.ndarray:
     while rns.modulus_product(mul_primes(count)) <= bound:
         count += 1
     mods = mul_primes(count)
-    pa = rns.to_eval(rns.from_bigint(a, mods, N, device=device))
-    pb = rns.to_eval(rns.from_bigint(b, mods, N, device=device))
-    big = rns.to_bigint(rns.to_coeff(rns.mul(pa, pb)))
+    big = rns.negacyclic_product(a, b, mods, device)
     P = rns.modulus_product(mods)
     half = P // 2
     return np.array([x - P if x > half else x for x in big], dtype=object)

@@ -9,9 +9,10 @@ The context wraps a BinFheContext of the radix parameter set (TOY_RADIX:
 plaintext space 16 = 2-bit message x 2-bit carry limbs) with its keys on
 the context's device (the first CUDA card unless the caller names another);
 every op delegates to the batched radix engine with the context's
-`ntt_impl`.  Ciphertext and key serialisation wait for ROADMAP.md queue 1
-item 14 (utils/serial) and the proofs for item 9 (tfhe/zkp): those methods
-raise NotImplementedError.
+`ntt_impl`.  `get_proof` / `verify_proof` are fhe_tpu's hash commitment
+to the ciphertext's uint32 words (tfhe/zkp.py `commit`).  Ciphertext and
+key serialisation wait for ROADMAP.md queue 1 item 14 (utils/serial):
+those methods raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import enum
 import numpy as np
 import torch
 
-from . import lwe, radix, rgsw
+from . import lwe, radix, rgsw, zkp
 from .context import BinFheContext, _rng
 from .radix import RadixParams
 
@@ -359,12 +360,15 @@ class FheContext:
         return (ct.a.shape[-1] == self.params.n and ct.a.shape[-2] == rp.num_limbs
                 and ct.b.shape[-1] == rp.num_limbs and ct.modulus == self.params.q)
 
-    def _no_zkp(self):
-        raise NotImplementedError("proofs (tfhe/zkp) are not ported to fhe_tpu_torch yet "
-                                  "(ROADMAP.md queue 1, item 9)")
-
     def get_proof(self, x: EncryptedInt) -> bytes:
-        self._no_zkp()
+        """Hash commitment to the ciphertext's bytes (the reference's
+        GetProof is an empty placeholder, fhevm.cpp:497-500; this binds the
+        ciphertext through zkp.commit): a's then b's residues as uint32
+        words, fhe_tpu's bytes, under 32 zero bytes of randomness."""
+        ct = x.value.ct
+        blob = (ct.a.cpu().numpy().astype(np.uint32).tobytes()
+                + ct.b.cpu().numpy().astype(np.uint32).tobytes())
+        return zkp.commit(blob, b"\x00" * 32).value
 
     def verify_proof(self, x: EncryptedInt, proof: bytes) -> bool:
-        self._no_zkp()
+        return self.verify(x) and proof == self.get_proof(x)

@@ -76,6 +76,31 @@ def test_ntt_kernels_reject_unlisted_n(N, cuda):
     assert launch_counts() == before
 
 
+def test_ntt_below_eight_is_refused(cuda):
+    """N = 4: no plan (fhe_tpu's make_plan refuses it too) and no kernel;
+    nothing launched."""
+    before = launch_counts()
+    with pytest.raises(ValueError, match="power of two >= 8"):
+        ntt.make_plan(4, 17, cuda)
+    with pytest.raises(ValueError, match="no NTT kernel for N = 4"):
+        kntt.check_n(4)
+    assert launch_counts() == before
+
+
+def test_small_n_kernels_count_their_own_launches(cuda, gen):
+    """At N = 2^3..2^8 the wrappers launch the small-N kernels, counted as
+    ntt_forward_small / ntt_inverse_small."""
+    from fhe_tpu_torch.kernels import reset_launch_counts
+    reset_launch_counts()
+    for N in kntt.small_sizes():
+        plan = ntt.make_plan(N, primes.last_prime(27, 2 * N), cuda)
+        x = _residues(gen, plan.q, (5, N), cuda)
+        _same(ntt.ntt_inverse(plan, ntt.ntt_forward(plan, x)), x)
+    counts = launch_counts()
+    assert counts["ntt_forward_small"] == counts["ntt_inverse_small"] == len(kntt.small_sizes())
+    assert counts["ntt_forward"] == counts["ntt_inverse"] == 0
+
+
 def test_ntt_kernel_rejects_bad_input(cuda):
     plan = ntt.make_plan(1024, 134215681, cuda)
     with pytest.raises(TypeError):
@@ -681,3 +706,57 @@ def test_ckks_to_fhew_on_card_matches_cpu(cuda):
         outs.append((cts.a.cpu(), cts.b.cpu()))
     _same(outs[1][0], outs[0][0])
     _same(outs[1][1], outs[0][1])
+
+
+def test_trapdoor_and_arb_on_card_match_cpu(cuda):
+    """lattice/trapdoor.py at N = 64 (the small-N kernels) and N = 1024, and
+    math/ntt_arb.py's multiply_arb at m = 15 (L = 64) and m = 1733 (L =
+    8192), on the card against the CPU from one seed; every preimage
+    verifies."""
+    from fhe_tpu_torch.lattice import trapdoor
+    from fhe_tpu_torch.math import ntt_arb
+    for N, bits in ((64, 27), (1024, 27)):
+        xs = []
+        for dev in ("cpu", cuda):
+            rng = np.random.default_rng(N)
+            p = trapdoor.TrapdoorParams(N=N, q=primes.last_prime(bits, 2 * N))
+            td = trapdoor.trapdoor_gen(p, rng, device=dev)
+            u = rng.integers(0, p.q, size=N)
+            x = trapdoor.gauss_samp_corrected(td, u, rng)
+            assert trapdoor.verify_preimage(td, x, u)
+            xs.append((td.a_row.cpu(), x.cpu(), trapdoor.gauss_samp(td, u, rng).cpu()))
+        for got, want in zip(xs[1], xs[0]):
+            _same(got, want)
+    for m in (15, 1733):
+        q = primes.first_prime(28, 2 * m)
+        phi = len(ntt_arb.cyclotomic_poly(m)) - 1
+        rng = np.random.default_rng(m)
+        a, b = rng.integers(0, q, size=phi), rng.integers(0, q, size=phi)
+        got = ntt_arb.multiply_arb(a, b, m, q, device=cuda)
+        assert [int(v) for v in got] == [int(v) for v in ntt_arb.multiply_arb(a, b, m, q,
+                                                                                device="cpu")]
+
+
+def test_threshold_on_card_matches_cpu(cuda, monkeypatch):
+    """tfhe/threshold.py's additive 3-of-3 with proofs on a TOY batch on the
+    card against the same on the CPU, one secrets stream each."""
+    from fhe_tpu_torch.tfhe import threshold as th
+    outs = []
+    for dev in ("cpu", cuda):
+        rng = np.random.default_rng(7)
+        monkeypatch.setattr("secrets.token_bytes", lambda n: rng.bytes(n))
+        ctx = BinFheContext.generate("TOY", device=dev)
+        sk = ctx.key_gen(1)
+        m = np.arange(64) % 2
+        ct = ctx.encrypt(sk, m, 2)
+        cfg = th.ThresholdConfig(threshold=3, total_parties=3)
+        shares, vks = th.generate_key_shares(sk.s, ct.modulus, cfg)
+        pd, proof = th.batch_partial_decrypt(cfg, ct, shares[0])
+        assert th.batch_verify_proofs(cfg, ct, pd, proof, vks[0])
+        got = th.threshold_decrypt(cfg, ct, shares, vks, p=4)
+        np.testing.assert_array_equal(got.cpu().numpy() % 2, m)
+        outs.append((pd.values.cpu(), proof.response.cpu(), proof.merkle_root, got.cpu()))
+    _same(outs[1][0], outs[0][0])
+    _same(outs[1][1], outs[0][1])
+    assert outs[1][2] == outs[0][2]
+    _same(outs[1][3], outs[0][3])

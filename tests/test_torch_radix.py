@@ -306,9 +306,15 @@ def test_not_ported_yet_raise(cut):
                  tfc.serialize_secret_key, tfc.serialize_bootstrap_key):
         with pytest.raises(NotImplementedError, match="item 14"):
             call()
-    for call in (lambda: tfc.get_proof(x), lambda: tfc.verify_proof(x, b"")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    # the proofs are ported (tfhe/zkp.py): fhe_tpu's commitment to the
+    # ciphertext's uint32 words, byte for byte
+    proof = tfc.get_proof(x)
+    jx = jradix.RadixInt(ct=jlwe.LweCiphertext(
+        a=x.value.ct.a.numpy().astype(np.uint32), b=x.value.ct.b.numpy().astype(np.uint32),
+        modulus=x.value.ct.modulus, pt_mod=x.value.ct.pt_mod), rp=None, max_limb=0)
+    assert proof == jfhevm.FheContext.get_proof(None, jfhevm.EncryptedInt(jx, None))
+    assert tfc.verify_proof(x, proof)
+    assert not tfc.verify_proof(x, proof[:-1] + bytes([proof[-1] ^ 1]))
     with pytest.raises(ValueError, match="public_key_gen first"):
         FheContext(ctx=tfc.ctx, key=tfc.key, sk=tfc.sk, sk_n=tfc.sk_n).encrypt_public(
             [1], FheType.EUINT8)
