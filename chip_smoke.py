@@ -247,7 +247,39 @@ each of the three accumulators (`ntt_impl` None, "mega", "fused"):
    (tfhe/packed.py): a batch-4096 AND through the unpacked key identical to
    the AND through the key, the LWE batch round trip in both layouts; then
    the small-N kernels timed at [arb]'s shapes (cold L2) beside their bound;
-23. timings with CUDA events: gates/s at batch 4096 and single-gate latency
+23. [ser], serialization (utils/serial.py, serial_ref.py, serial_ref_pke.py)
+   on fhe_tpu's wire format: [main]'s 4096 AND outputs and its LWE secret
+   through dumps / loads (binary and JSON) onto the card, equal, each
+   archive byte-identical to the CPU port's (the secret made again from
+   SEED on the CPU); tests/vectors/pke_*.bin byte for byte through
+   dump_binary(load_binary(...)); the reference's serial_lwe_ct{0,1}
+   archives loaded onto the card and decrypted to the manifest's bits; an
+   euint8 ciphertext of a TOY_RADIX context keyed on the card through
+   FheContext.serialize_ciphertext and back, byte-identical to the CPU
+   port's archive, 0 wrong;
+24. [srv], the port's HTTP server (server.py) in a thread on 127.0.0.1, an
+   ephemeral port, its contexts on the card: /health (the card), /context
+   STD128, /keygen from a seed, /encrypt of 2 x 4096 random bits,
+   /v1/eval/and, /gate XOR, /not and /decrypt of each: 0 wrong, one launch
+   of kernel 3 a gate request (counters reset before and read after each),
+   every returned archive byte-identical to the port's BinFheContext called
+   directly from the same seeds; each request's wall time and the gate's
+   device time (CUDA events, utils/profiling);
+25. [capi], the lux_fhe_* / ckks_* C API (native/capi.cpp, built with g++
+   and loaded with ctypes into this process, which it joins; where g++ or
+   this interpreter's Python.h is missing a printed line says so and the
+   phase does not run): lux_fhe_has_gpu 1; on STD128 keygen, encrypt,
+   AND, OR, XOR, NOT, MUX and bootstrap at batch 1 on every input pair
+   (kernel 3 once a gate), the marshal / unmarshal round trip, the
+   threshold keygen and decrypt; ckks_context_new(14, 208, 2^26) with a
+   keypair from a seed (capi_impl.ckks_keygen: the ABI's keygen takes
+   none): encrypt, add, mult and rotate of 8192 slots within 1e-3 x N/256
+   of numpy, each ciphertext's archive byte-identical to the CPU port's
+   from the same seed, kernels 1-2 at
+   its new shapes against their plain versions and timed; the C client
+   (native/client.cpp) encrypting 4096 bit pairs under the ABI's secret,
+   the ABI's AND on the card, the C client decrypting: 0 wrong;
+26. timings with CUDA events: gates/s at batch 4096 and single-gate latency
    per accumulator, and each kernel against its plain version at the main
    path's shapes, beside its bound (the least time the card could take);
    the NTT kernels, and their plain versions, with a cold L2 (each call
@@ -274,6 +306,7 @@ import functools
 import importlib.util
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -431,6 +464,16 @@ TD_SYNDROMES = 4
 ARB_MS = (7, 12, 15, 24)
 ARB_BIG_M = 1733
 ZKP_BITS = 8
+# the [srv] phase's key seed (its bits and encryptions: the next three);
+# the [capi] phase's ckks_* context (log N, log Q, scale: bench config 3's
+# ring and scale, 7 levels at the ABI's dnum = 2), its keypair's seed and
+# its decryption bound (PERF.md §2: fhe_tpu's 1e-3 at N = 256, times N / 256)
+SRV_SEED = SEED + 30
+# the reference's archives that [ser] reads, beside this script
+VECTORS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "vectors")
+CAPI_CKKS = (14, 208, float(1 << 26))
+CAPI_CKKS_SEED = SEED + 47
+CAPI_CKKS_TOL = 1e-3 * (1 << 14) / 256
 HBM_BYTES_PER_S = 3.35e12       # NVIDIA H100 SXM data sheet
 IMUL_PER_CLOCK_PER_SM = 64      # CUDA C++ Programming Guide throughput table, cc 9.0
 
@@ -757,8 +800,8 @@ def main_path(dev):
     print(f"[main] peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     path_launches = {name: launches[None][name] for name in ("ntt_forward", "ntt_inverse")}
     path_launches.update({name: launches[impl][name] for impl, name in ACC_KERNEL.items()})
-    return ctx, sk, key, cts, path_launches, digest(key.bsk, key.ksk.a, key.ksk.b, first["AND"].a,
-                                                    first["AND"].b)
+    return ctx, sk, key, cts, first["AND"], path_launches, digest(
+        key.bsk, key.ksk.a, key.ksk.b, first["AND"].a, first["AND"].b)
 
 
 def comb_mask(ct1, ct2) -> np.ndarray:
@@ -4208,6 +4251,486 @@ def pack_phase(dev, card: str, ctx, key, cts) -> dict:
     return launches
 
 
+def lwe_equal(a, b) -> bool:
+    return (a.modulus, a.pt_mod) == (b.modulus, b.pt_mod) and torch.equal(a.a, b.a) and \
+        torch.equal(a.b, b.b)
+
+
+def ser_phase(dev, card: str, sk, and_out) -> dict:
+    """[ser]: [main]'s AND outputs and LWE secret through utils/serial
+    (binary and JSON) on the card, equal after the round trip and
+    byte-identical to the CPU port's archives (the outputs copied to the
+    host, the secret made again from SEED on the CPU); the reference's
+    PKE cereal archives byte for byte through serial_ref_pke; its LWE
+    archives onto the card and decrypted to the manifest's bits; an euint8
+    through FheContext.serialize_ciphertext and back.  Returns the run's
+    launches."""
+    import io
+    from fhe_tpu_torch import BinFheContext
+    from fhe_tpu_torch.tfhe import lwe, make_params
+    from fhe_tpu_torch.tfhe.fhevm import EncryptedInt, FheContext, FheType
+    from fhe_tpu_torch.tfhe.radix import RadixInt
+    from fhe_tpu_torch.utils import serial, serial_ref, serial_ref_pke
+    tag, t_phase = "[ser]", time.perf_counter()
+    cpu_sk = BinFheContext.generate("STD128", device="cpu").key_gen(np.random.default_rng(SEED))
+
+    def run():
+        for obj, cpu_obj, what in ((and_out, and_out.to("cpu"), f"{BATCH} AND outputs"),
+                                   (sk, cpu_sk, "LWE secret")):
+            for mode in ("binary", "json"):
+                t0 = time.perf_counter()
+                blob = serial.dumps(obj, mode)
+                t1 = time.perf_counter()
+                back = serial.loads(blob, mode, device=dev)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if what == "LWE secret":
+                    same = torch.equal(back.s, obj.s) and back.s.device == obj.s.device
+                else:
+                    same = lwe_equal(back, obj) and back.a.device == obj.a.device
+                if not same:
+                    fail(f"{tag} {what} ({mode}) differ after the round trip on the card")
+                if blob != serial.dumps(cpu_obj, mode):
+                    fail(f"{tag} {what} ({mode}): the card's archive differs from the CPU port's")
+                print(f"{tag} {what}, {mode}: {len(blob)} bytes, dumps {1e3 * (t1 - t0):.3f} ms, "
+                      f"loads onto {dev} {1e3 * (t2 - t1):.3f} ms (host clock); equal after the "
+                      f"round trip, byte-identical to the CPU port's archive")
+        header = json.loads(bytes(np.load(io.BytesIO(serial.dumps(and_out)))["__header__"]))
+        if header["spec"]["r"]["type"] != "fhe_tpu.tfhe.lwe.LweCiphertext":
+            fail(f"{tag} the archive's type tag is {header['spec']['r']['type']}")
+        print(f"{tag} the archive names fhe_tpu.tfhe.lwe.LweCiphertext, its words uint32: "
+              f"fhe_tpu's wire format")
+        for kind, name in (("context", "pke_cc.bin"), ("private_key", "pke_sk.bin"),
+                           ("public_key", "pke_pk.bin"), ("ciphertext", "pke_ct.bin"),
+                           ("ciphertext", "pke_ct2.bin")):
+            with open(f"{VECTORS}/{name}", "rb") as f:
+                raw = f.read()
+            if serial_ref_pke.dump_binary(serial_ref_pke.load_binary(f"{VECTORS}/{name}",
+                                                                     kind), kind) != raw:
+                fail(f"{tag} tests/vectors/{name} does not come back byte for byte")
+        print(f"{tag} tests/vectors/pke_{{cc,sk,pk,ct,ct2}}.bin: dump_binary(load_binary(...)) "
+              f"byte-identical")
+        with open(f"{VECTORS}/manifest_pke.json") as f:
+            bits = json.load(f)["serial_lwe"]["bits"]
+        v = np.load(f"{VECTORS}/serial_lwe_sk.npy").astype(np.int64)
+        ref_sk = lwe.LweSecretKey(s=torch.from_numpy(np.where(v > 1, -1, v).astype(np.int32)).to(dev))
+        got = []
+        for bit in bits:
+            for load, ext in ((serial_ref.load_lwe_binary, "bin"), (serial_ref.load_lwe_json,
+                                                                    "json")):
+                ct = load(f"{VECTORS}/serial_lwe_ct{bit}.{ext}", device=dev)
+                got.append(int(lwe.decrypt(make_params("TOY"), ref_sk, ct, p=4)))
+        if got != [b for b in bits for _ in range(2)]:
+            fail(f"{tag} the reference's LWE archives decrypt to {got}, not {bits}")
+        print(f"{tag} tests/vectors/serial_lwe_ct{{0,1}}.{{bin,json}} loaded onto {dev} and "
+              f"decrypted with serial_lwe_sk.npy: {got} (the manifest's bits {bits})")
+        t0 = time.perf_counter()
+        fc = FheContext.create(RADIX_SET, rng=SEED + 42, device=dev)
+        rng = np.random.default_rng(SEED + 43)
+        vals = rng.integers(0, 256, size=RADIX_PAIRS)
+        x = fc.encrypt(vals, FheType.EUINT8, rng)
+        blob = fc.serialize_ciphertext(x)
+        back = fc.deserialize_ciphertext(blob)
+        x_cpu = EncryptedInt(RadixInt(x.value.ct.to("cpu"), x.value.rp, x.value.max_limb),
+                             x.fhe_type)
+        if not (lwe_equal(back.value.ct, x.value.ct) and back.fhe_type is FheType.EUINT8 and
+                back.value.ct.a.device == x.value.ct.a.device and
+                blob == serial.dumps(x_cpu)):
+            fail(f"{tag} the euint8 ciphertext differs after serialize/deserialize_ciphertext")
+        wrong = int((np.asarray(fc.decrypt(back), dtype=np.int64) != vals).sum())
+        if wrong:
+            fail(f"{tag} {wrong} deserialized euint8 values decrypt wrong")
+        print(f"{tag} {RADIX_SET} keyed and {RADIX_PAIRS} euint8 encrypted "
+              f"({time.perf_counter() - t0:.3f} s); serialize_ciphertext {len(blob)} bytes, "
+              f"deserialize_ciphertext onto {dev}: equal, byte-identical to the CPU port's "
+              f"archive, {wrong} wrong of {RADIX_PAIRS}")
+    _, launches = launches_of(run)
+    print(f"{tag} launches {nonzero(launches)}; the phase took "
+          f"{time.perf_counter() - t_phase:.3f} s (host clock)")
+    return launches
+
+
+def srv_request(base: str, path: str, payload: dict | None = None):
+    """(reply, wall ms) of one request to the port's server."""
+    import urllib.request
+    t0 = time.perf_counter()
+    if payload is None:
+        with urllib.request.urlopen(base + path, timeout=300) as r:
+            body = r.read()
+    else:
+        req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            body = r.read()
+    return json.loads(body), 1e3 * (time.perf_counter() - t0)
+
+
+def srv_phase(dev, card: str) -> dict:
+    """[srv]: the port's server in a thread on 127.0.0.1 (an ephemeral
+    port), its contexts on the card: /health, /context STD128, /keygen from
+    SRV_SEED, /encrypt of 2 x BATCH random bits, /v1/eval/and, /gate XOR,
+    /not and /decrypt of each over HTTP, 0 wrong against the truth tables;
+    kernel 3 launched once a gate request (counters reset before and read
+    after each); every returned archive byte-identical to the port's
+    BinFheContext called directly from the same seeds; each request's wall
+    time and the gate's device time (CUDA events, utils/profiling's
+    "server.gate" stage).  Returns the gate requests' launches."""
+    import base64
+    import threading
+    from fhe_tpu_torch import BinFheContext, kernels, server
+    from fhe_tpu_torch.utils import profiling, serial
+    tag, t_phase = "[srv]", time.perf_counter()
+    httpd = server.make_server(0, device=dev)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    total = collections.Counter()
+    try:
+        health, ms = srv_request(base, "/health")
+        if (health["backend"], health["device"], health["devices"]) != (
+                dev.type, str(dev), torch.cuda.device_count()):
+            fail(f"{tag} /health does not report the card: {health}")
+        print(f"{tag} GET /health on {base}: {health} ({ms:.3f} ms)")
+        cid, ms = srv_request(base, "/context", {"param_set": "STD128"})
+        cid = cid["context_id"]
+        print(f"{tag} POST /context STD128: {ms:.3f} ms")
+        kid, ms = srv_request(base, "/keygen", {"context_id": cid, "seed": SRV_SEED})
+        kid = kid["key_id"]
+        print(f"{tag} POST /keygen (seed {SRV_SEED}): {ms:.3f} ms")
+        rng = np.random.default_rng(SRV_SEED + 1)
+        m1, m2 = (rng.integers(0, 2, size=BATCH) for _ in range(2))
+        cts = []
+        for m, seed in ((m1, SRV_SEED + 2), (m2, SRV_SEED + 3)):
+            r, ms = srv_request(base, "/encrypt", {"context_id": cid, "key_id": kid,
+                                                   "bits": m.tolist(), "seed": seed})
+            cts.append(r["ciphertext"])
+            print(f"{tag} POST /encrypt of {BATCH} bits: {ms:.3f} ms, {len(r['ciphertext'])} "
+                  f"base64 characters")
+        # the same seeds through the port's context, called directly
+        ctx = BinFheContext.generate("STD128", device=dev)
+        krng = np.random.default_rng(SRV_SEED)
+        sk = ctx.key_gen(krng)
+        key = ctx.bt_key_gen(sk, krng)
+        direct = [ctx.encrypt(sk, m1, np.random.default_rng(SRV_SEED + 2)),
+                  ctx.encrypt(sk, m2, np.random.default_rng(SRV_SEED + 3))]
+        want = {"AND": (ctx.eval_bin_gate(key, "AND", *direct), m1 & m2),
+                "XOR": (ctx.eval_bin_gate(key, "XOR", *direct), m1 ^ m2),
+                "NOT": (ctx.eval_not(direct[0]), 1 - m1)}
+        b64 = lambda ct: base64.b64encode(serial.dumps(ct)).decode()
+        if cts != [b64(c) for c in direct]:
+            fail(f"{tag} /encrypt's archives differ from BinFheContext.encrypt's")
+        requests = {"AND": ("/v1/eval/and", {"ct1": cts[0], "ct2": cts[1]}),
+                    "XOR": ("/gate", {"gate": "XOR", "ct1": cts[0], "ct2": cts[1]}),
+                    "NOT": ("/not", {"ciphertext": cts[0]})}
+        for what, (path, payload) in requests.items():
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            profiling.reset()
+            r, ms = srv_request(base, path, {"context_id": cid, "key_id": kid, **payload})
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            stage = profiling.report(reset=True)
+            total.update(launches)
+            expect = 0 if what == "NOT" else 1
+            if launches["blind_rotate"] != expect or any(
+                    launches[k] for k in ("blind_rotate_mega", "rotate_step_br", *WIDE_KERNEL.values())):
+                fail(f"{tag} {what}: launches {nonzero(launches)}, expected {expect} of "
+                     f"blind_rotate")
+            if r["ciphertext"] != b64(want[what][0]):
+                fail(f"{tag} {what}: the server's archive differs from BinFheContext's")
+            d, d_ms = srv_request(base, "/decrypt", {"context_id": cid, "key_id": kid,
+                                                     "ciphertext": r["ciphertext"]})
+            wrong = int((np.asarray(d["bits"]) != want[what][1]).sum())
+            if wrong:
+                fail(f"{tag} {what}: {wrong} of {BATCH} outputs decrypt wrong")
+            op = "server.not" if what == "NOT" else "server.gate"
+            print(f"{tag} POST {path} ({what} of {BATCH} pairs): {ms:.3f} ms wall, the "
+                  f"operation {stage[op]['total_s'] * 1e3:.3f} ms on the device (CUDA events); "
+                  f"launches {nonzero(launches)}; byte-identical to BinFheContext's; POST "
+                  f"/decrypt {d_ms:.3f} ms: {wrong} wrong of {BATCH}  ({card})")
+        stats, _ = srv_request(base, "/v1/stats")
+        print(f"{tag} GET /v1/stats: {stats}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return total
+
+
+def capi_toolchain() -> tuple[str | None, str]:
+    """(g++'s path or None, this interpreter's Python.h path, which may be
+    missing): what libfhecapi's build needs."""
+    import shutil
+    import sysconfig
+    return shutil.which("g++"), os.path.join(sysconfig.get_paths()["include"], "Python.h")
+
+
+def capi_ckks_handle(h):
+    """The registry id that a ckks_* handle (a struct of one int64) holds."""
+    import ctypes
+    return ctypes.cast(h, ctypes.POINTER(ctypes.c_int64)).contents.value
+
+
+def capi_ckks_cpu(z1: np.ndarray, z2: np.ndarray) -> dict:
+    """The archives of [capi]'s CKKS ciphertexts made by the port's
+    capi_impl on the CPU from the same seed and calls."""
+    from fhe_tpu_torch.native import capi_impl
+    device = capi_impl._device
+    capi_impl.set_device("cpu")
+    try:
+        h = capi_impl.ckks_context_new(*CAPI_CKKS)
+        kp = capi_impl.ckks_keygen(h, CAPI_CKKS_SEED)
+        ca, cb = (capi_impl.ckks_encrypt(h, kp, z.astype("<f8").tobytes()) for z in (z1, z2))
+        cts = {"encrypt": ca, "add": capi_impl.ckks_add(h, ca, cb),
+               "mult": capi_impl.ckks_mult_ctx(h, ca, cb),
+               "rotate by 1": capi_impl.ckks_rotate(h, kp, ca, 1)}
+        out = {what: capi_impl.ckks_serialize_ciphertext(ct) for what, ct in cts.items()}
+        capi_impl.ckks_keypair_free(kp)
+        capi_impl.ckks_context_free(h)
+        return out
+    finally:
+        capi_impl.set_device(device)
+
+
+def capi_ckks(tag: str, lib, dev, errors: Errors, card: str) -> collections.Counter:
+    """The ckks_* ABI at CAPI_CKKS on the card, with a keypair of
+    CAPI_CKKS_SEED (capi_impl.ckks_keygen, the function behind the ABI's
+    ckks_keygen, which takes no seed): encrypt of N/2 slots, add, mult (the
+    3-argument form) and rotate by 1 through the ABI, each decrypted within
+    CAPI_CKKS_TOL of numpy and each ciphertext's archive byte-identical to
+    the CPU port's (capi_ckks_cpu); kernels 1-2 at every shape it launched
+    them at; returns its launches."""
+    import ctypes
+    from fhe_tpu_torch.native import capi, capi_impl
+    log_n, log_q, scale = CAPI_CKKS
+    slots = 1 << (log_n - 1)
+    rng = np.random.default_rng(SEED + 44)
+    z1, z2 = rng.normal(size=(2, slots)) * 0.5
+
+    def decrypt(c, kp, ct):
+        n = ctypes.c_int()
+        p = lib.ckks_decrypt(c, kp, ct, ctypes.byref(n))
+        if not p or n.value != slots:
+            fail(f"{tag} ckks_decrypt returned {n.value} values")
+        out = np.ctypeslib.as_array(p, shape=(slots,)).copy()
+        capi.libc_free(p)
+        return out
+
+    def archive(ct) -> bytes:
+        n = ctypes.c_int()
+        data = lib.ckks_serialize_ciphertext(ct, ctypes.byref(n))
+        if not data:
+            fail(f"{tag} ckks_serialize_ciphertext failed")
+        raw = ctypes.string_at(data, n.value)
+        lib.lux_fhe_bytes_free(data)
+        return raw
+
+    def run():
+        t0 = time.perf_counter()
+        c = lib.ckks_context_new(log_n, log_q, scale)
+        if not c:
+            fail(f"{tag} ckks_context_new({log_n}, {log_q}, 2^26) failed")
+        box = ctypes.c_int64(capi_impl.ckks_keygen(capi_ckks_handle(c), CAPI_CKKS_SEED))
+        kp = ctypes.c_void_p(ctypes.addressof(box))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ca, cb = (lib.ckks_encrypt(c, kp, np.ascontiguousarray(z).ctypes.data_as(
+            ctypes.POINTER(ctypes.c_double)), slots) for z in (z1, z2))
+        outs = {"encrypt": (ca, z1), "add": (lib.ckks_add(c, ca, cb), z1 + z2),
+                "mult": (lib.ckks_mult(c, ca, cb), z1 * z2),
+                "rotate by 1": (lib.ckks_rotate(c, kp, ca, 1), np.roll(z1, -1))}
+        errs, archives = {}, {}
+        for what, (ct, want) in outs.items():
+            if not ct:
+                fail(f"{tag} ckks {what} failed")
+            errs[what] = np.abs(decrypt(c, kp, ct) - want)
+            archives[what] = archive(ct)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        capi_impl.ckks_keypair_free(box.value)
+        return c, lib.ckks_context_levels(c), t1 - t0, t2 - t1, errs, archives
+    with limb_launch_shapes() as shapes:
+        (c, levels, key_s, ops_s, errs, archives), launches = launches_of(run)
+    lib.ckks_context_free(c)
+    print(f"{tag} ckks_context_new({log_n}, {log_q}, 2^26): {levels} levels; capi_impl."
+          f"ckks_keygen(h, {CAPI_CKKS_SEED}) (relin and 10 stock rotation keys) {key_s:.3f} s; "
+          f"encrypt of {slots} slots x 2, add, mult, rotate by 1, 4 decrypts and 4 archives "
+          f"{ops_s:.3f} s (host clock); launches {nonzero(launches)}")
+    for what, err in errs.items():
+        print(f"{tag} ckks {what}: max |error| {err.max():.3e} at slot {int(np.argmax(err))} "
+              f"(bound {CAPI_CKKS_TOL:.3e})")
+        if not (err <= CAPI_CKKS_TOL).all():
+            fail(f"{tag} ckks {what} through the ABI past its bound")
+    t0 = time.perf_counter()
+    cpu = capi_ckks_cpu(z1, z2)
+    differ = [what for what in archives if archives[what] != cpu[what]]
+    if differ:
+        fail(f"{tag} ckks {', '.join(differ)}: the card's archive differs from the CPU port's")
+    print(f"{tag} ckks encrypt, add, mult and rotate by 1: each archive byte-identical to the "
+          f"CPU port's capi_impl from the same seed ({time.perf_counter() - t0:.3f} s on the "
+          f"host)")
+    limb_kernels_at(tag, "ckks_* ABI run", dev, shapes, {}, errors, int_multiply_peak(dev), card)
+    return launches
+
+
+def capi_phase(dev, errors: Errors, card: str) -> dict:
+    """[capi]: libfhecapi built with g++ and loaded with ctypes into this
+    process (it joins the interpreter; its registries on the card):
+    lux_fhe_has_gpu 1; on STD128 keygen, encrypt, AND, OR, XOR, NOT, MUX
+    and bootstrap at batch 1 on all four input pairs against the truth
+    tables (kernel 3 once a gate, three times a MUX), the marshal /
+    unmarshal round trip, threshold keygen and decrypt; the ckks_* ABI
+    (capi_ckks); the C client (client.cpp) encrypting 4096 bits under the
+    ABI's secret, the ABI's AND on the card, the C client decrypting.
+    Returns the run's launches."""
+    import ctypes
+    from fhe_tpu_torch.native import capi, capi_impl, client
+    from fhe_tpu_torch.utils import serial
+    tag, t_phase = "[capi]", time.perf_counter()
+    gxx, python_h = capi_toolchain()
+    if gxx is None or not os.path.exists(python_h):
+        print(f"{tag} not run: g++ {gxx or 'missing'}, {python_h} "
+              f"{'present' if os.path.exists(python_h) else 'missing'} on this machine")
+        return collections.Counter()
+    print(f"{tag} g++ {gxx}; {python_h} present")
+    capi_impl.set_device(dev)
+    t0 = time.perf_counter()
+    lib = capi.get_lib()
+    client.get_lib()
+    print(f"{tag} libfhecapi and libclient built with g++ and loaded: "
+          f"{time.perf_counter() - t0:.3f} s")
+    if lib.lux_fhe_has_gpu() != 1:
+        fail(f"{tag} lux_fhe_has_gpu() = {lib.lux_fhe_has_gpu()}")
+
+    def handle(call, *args):
+        out = ctypes.c_void_p()
+        rc = call(*args, ctypes.byref(out))
+        if rc != 0:
+            fail(f"{tag} {call.__name__}: {lib.lux_fhe_strerror(rc).decode()}")
+        return out
+
+    def dec(ctx, sk, ct) -> int:
+        out = ctypes.c_int()
+        if lib.lux_fhe_decrypt(ctx, sk, ct, ctypes.byref(out)) != 0:
+            fail(f"{tag} lux_fhe_decrypt failed")
+        return out.value
+
+    def marshal(ct) -> bytes:
+        data, n = capi._u8p(), ctypes.c_int64()
+        if lib.lux_fhe_ciphertext_marshal(ct, ctypes.byref(data), ctypes.byref(n)) != 0:
+            fail(f"{tag} lux_fhe_ciphertext_marshal failed")
+        raw = ctypes.string_at(data, n.value)
+        lib.lux_fhe_bytes_free(data)
+        return raw
+
+    def unmarshal(raw: bytes):
+        buf = (ctypes.c_uint8 * len(raw)).from_buffer_copy(raw)
+        return handle(lib.lux_fhe_ciphertext_unmarshal, ctypes.cast(buf, capi._u8p), len(raw))
+
+    truth = {"and": lambda a, b: a & b, "or": lambda a, b: a | b, "xor": lambda a, b: a ^ b}
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    ctx = handle(lib.lux_fhe_context_new, b"STD128", b"GINX")
+    sk = handle(lib.lux_fhe_keygen_secret, ctx, SEED + 45)
+    bsk = handle(lib.lux_fhe_keygen_bootstrap, ctx, sk)
+    cts = {b: handle(lib.lux_fhe_encrypt, ctx, sk, b) for b in (0, 1)}
+    torch.cuda.synchronize()
+    print(f"{tag} STD128 context (n = {lib.lux_fhe_context_n(ctx)}, N = "
+          f"{lib.lux_fhe_context_ring_dim(ctx)}, q = {lib.lux_fhe_context_modulus(ctx)}), "
+          f"secret, bootstrap key and 2 encryptions through the ABI: "
+          f"{time.perf_counter() - t0:.3f} s")
+    wrong = 0
+    for name, f in truth.items():
+        for a in (0, 1):
+            for b in (0, 1):
+                out, launches = launches_of(
+                    lambda: handle(getattr(lib, f"lux_fhe_{name}"), ctx, bsk, cts[a], cts[b]))
+                total.update(launches)
+                wrong += dec(ctx, sk, out) != f(a, b)
+                if launches["blind_rotate"] != 1:
+                    fail(f"{tag} lux_fhe_{name}: launches {nonzero(launches)}")
+                lib.lux_fhe_ciphertext_free(out)
+    for a in (0, 1):
+        out = handle(lib.lux_fhe_not, ctx, cts[a])
+        wrong += dec(ctx, sk, out) != 1 - a
+        for sel in (0, 1):
+            for b in (0, 1):
+                mux, launches = launches_of(lambda: handle(lib.lux_fhe_mux, ctx, bsk, cts[sel],
+                                                           cts[a], cts[b]))
+                total.update(launches)
+                wrong += dec(ctx, sk, mux) != (a if sel else b)
+                if launches["blind_rotate"] != 3:
+                    fail(f"{tag} lux_fhe_mux: launches {nonzero(launches)}")
+        boot, launches = launches_of(lambda: handle(lib.lux_fhe_bootstrap, ctx, bsk, cts[a]))
+        total.update(launches)
+        wrong += dec(ctx, sk, boot) != a
+        back = unmarshal(marshal(boot))
+        wrong += dec(ctx, sk, back) != a
+    if wrong:
+        fail(f"{tag} {wrong} wrong outputs through the ABI")
+    print(f"{tag} lux_fhe_and / or / xor on all four input pairs, lux_fhe_not, lux_fhe_mux on "
+          f"every (sel, a, b), lux_fhe_bootstrap and the marshal / unmarshal round trip at batch "
+          f"1: 0 wrong; kernel 3 once a gate, 3 times a MUX, once a bootstrap; launches "
+          f"{nonzero(total)}")
+    sh = handle(lib.lux_fhe_threshold_keygen, ctx, sk, 3, 3, b"additive")
+    parties = lib.lux_fhe_threshold_parties(sh)
+    got = []
+    for bit in (0, 1):
+        out = ctypes.c_int()
+        ids = (ctypes.c_int32 * 3)(1, 2, 3)
+        if lib.lux_fhe_threshold_decrypt(ctx, sh, cts[bit], ids, 3, ctypes.byref(out)) != 0:
+            fail(f"{tag} lux_fhe_threshold_decrypt failed")
+        got.append(out.value)
+    short = lib.lux_fhe_threshold_decrypt(ctx, sh, cts[1], (ctypes.c_int32 * 2)(1, 2), 2,
+                                          ctypes.byref(ctypes.c_int()))
+    if got != [0, 1] or short == 0:
+        fail(f"{tag} threshold decrypt {got}, short quorum rc {short}")
+    lib.lux_fhe_threshold_free(sh)
+    print(f"{tag} lux_fhe_threshold_keygen 3-of-3 additive ({parties} parties) and lux_fhe_threshold_decrypt of 0 and 1: {got}; a quorum of 2 refused")
+    # the C client under the ABI's secret; the ABI's AND on the card
+    data, n = capi._u8p(), ctypes.c_int64()
+    if lib.lux_fhe_secretkey_marshal(sk, ctypes.byref(data), ctypes.byref(n)) != 0:
+        fail(f"{tag} lux_fhe_secretkey_marshal failed")
+    key, _ = serial.loads(ctypes.string_at(data, n.value), device="cpu")
+    lib.lux_fhe_bytes_free(data)
+    q = lib.lux_fhe_context_modulus(ctx)
+    s = key.s.numpy()
+    rng = np.random.default_rng(SEED + 46)
+    m1, m2 = (rng.integers(0, 2, size=BATCH).astype(np.int32) for _ in range(2))
+    t0 = time.perf_counter()
+    c1, c2 = (unmarshal(serial.dumps(client.as_ciphertext(
+        *client.lwe_encrypt(s, q, 4, m, bytes(rng.integers(0, 256, 32, dtype=np.uint8))), q,
+        device="cpu"))) for m in (m1, m2))
+    t1 = time.perf_counter()
+    out, launches = launches_of(lambda: handle(lib.lux_fhe_and, ctx, bsk, c1, c2))
+    total.update(launches)
+    t2 = time.perf_counter()
+    res = serial.loads(marshal(out), device="cpu")
+    got = client.lwe_decrypt(s, q, 4, *client.ciphertext_words(res))
+    wrong = int((got != (m1 & m2)).sum())
+    if wrong or launches["blind_rotate"] != 1:
+        fail(f"{tag} C client -> ABI AND -> C client: {wrong} wrong, launches {nonzero(launches)}")
+    print(f"{tag} C client: {BATCH} bit pairs encrypted under the ABI's secret and unmarshalled "
+          f"{t1 - t0:.3f} s, lux_fhe_and on {dev} {1e3 * (t2 - t1):.3f} ms (host clock, one "
+          f"launch of kernel 3), marshalled back and decrypted by the C client: {wrong} wrong of "
+          f"{BATCH}")
+    total.update(capi_ckks(tag, lib, dev, errors, card))
+    for h, free in ((bsk, lib.lux_fhe_bootstrapkey_free), (sk, lib.lux_fhe_secretkey_free),
+                    (ctx, lib.lux_fhe_context_free)):
+        free(h)
+    print(f"{tag} the phase took {time.perf_counter() - t_phase:.3f} s (host clock)")
+    return total
+
+
+def service_phases(dev, errors: Errors, card: str, sk, and_out) -> list:
+    """[ser], [srv] and [capi]; their launches."""
+    t0 = time.perf_counter()
+    out = [ser_phase(dev, card, sk, and_out), srv_phase(dev, card), capi_phase(dev, errors, card)]
+    print(f"[ser] + [srv] + [capi] took {time.perf_counter() - t0:.3f} s (host clock)")
+    return out
+
+
 def time_single_ntt(dev, shapes: collections.Counter, errors: Errors, card: str) -> dict:
     """Kernels 1-2 single-modulus at each (kernel, [rows, N]) that [td] and
     [arb] launched (under one of the moduli they launched it with), cold
@@ -4471,7 +4994,7 @@ def phases(dev, card: str, small_cpu) -> list[dict]:
     """Every phase after the build; returns the kernels line's rows."""
     errors = Errors()
     check_kernels(dev, errors)
-    ctx, sk, key, cts, launches, main_digest = main_path(dev)
+    ctx, sk, key, cts, and_out, launches, main_digest = main_path(dev)
     func_launches = func_phase(dev, ctx, sk, key, errors, card)
     for name in ("ntt_forward", "ntt_inverse"):
         launches[name] += func_launches[None][name]
@@ -4509,6 +5032,8 @@ def phases(dev, card: str, small_cpu) -> list[dict]:
         errors.max[name] = max(errors.max[name], ss["errors"][name])
     retrace_untraced(dev, card)
     slice_launches, small_times = slice_phases(dev, errors, card, ctx, sk, key, cts)
+    slice_launches += service_phases(dev, errors, card, sk, and_out)
+    retrace_untraced(dev, card)
     for name in KERNELS:
         launches[name] += sum(n[name] for n in slice_launches)
     times = timings(dev, ctx, key, cts, errors, card)

@@ -8,7 +8,12 @@ fhe_tpu: `fhe_tpu` is the reference the tests hold this package against.
 
 Residues are stored as `torch.int32` (every modulus on the path is below
 2^31); the plain PyTorch versions compute in int64 and the kernels
-reinterpret the words as uint32.
+reinterpret the words as uint32.  Archives (`utils.serial`) use fhe_tpu's
+wire format, so either package reads the other's keys and ciphertexts.
+The host-side layers sit beside the compute path: `utils` (serialization,
+constant-time helpers, profiling), `native` (the C++ CRT codec, the C
+client and the lux_fhe_* C API, built with g++ at first use), `server`
+(the REST service) and `cli`.
 """
 
 from . import convert, lattice, math, parallel, pke, tfhe

@@ -2,15 +2,16 @@
 key switching, CKKS, BGV, BFV and the coefficient encodings, multiparty
 threshold decryption and joint keys, proxy re-encryption, advanced SHE and
 CKKS bootstrapping, functional bootstrapping and CKKS<->FHEW scheme
-switching (ports of fhe_tpu/pke/params.py, rlwe.py, ckks.py,
-bgv.py, bfv.py, encodings.py, multiparty.py, pre.py, advanced.py,
-bootstrap.py, fbt.py, schemeswitch.py)."""
+switching, and the per-tag evaluation-key caches (ports of
+fhe_tpu/pke/params.py, rlwe.py, ckks.py, bgv.py, bfv.py, encodings.py,
+multiparty.py, pre.py, advanced.py, bootstrap.py, fbt.py, schemeswitch.py,
+keycache.py)."""
 
-from . import (advanced, bfv, bgv, bootstrap, ckks, encodings, fbt, multiparty, params, pre, rlwe,
-               schemeswitch)
+from . import (advanced, bfv, bgv, bootstrap, ckks, encodings, fbt, keycache, multiparty, params,
+               pre, rlwe, schemeswitch)
 from .bfv import BfvContext
 from .bgv import BgvContext
 from .ckks import CkksContext
 
 __all__ = ["BfvContext", "BgvContext", "CkksContext", "advanced", "bfv", "bgv", "bootstrap", "ckks",
-           "encodings", "fbt", "multiparty", "params", "pre", "rlwe", "schemeswitch"]
+           "encodings", "fbt", "keycache", "multiparty", "params", "pre", "rlwe", "schemeswitch"]

@@ -10,9 +10,11 @@ plaintext space 16 = 2-bit message x 2-bit carry limbs) with its keys on
 the context's device (the first CUDA card unless the caller names another);
 every op delegates to the batched radix engine with the context's
 `ntt_impl`.  `get_proof` / `verify_proof` are fhe_tpu's hash commitment
-to the ciphertext's uint32 words (tfhe/zkp.py `commit`).  Ciphertext and
-key serialisation wait for ROADMAP.md queue 1 item 14 (utils/serial):
-those methods raise NotImplementedError.
+to the ciphertext's uint32 words (tfhe/zkp.py `commit`).  Ciphertexts
+and keys serialise through utils/serial on fhe_tpu's wire format: the
+archive of an EncryptedInt is byte-identical to fhe_tpu's for the same
+values, and `deserialize_ciphertext` reads either package's archive onto
+the context's device.
 """
 
 from __future__ import annotations
@@ -336,21 +338,22 @@ class FheContext:
         return self.rem(r, self.trivial_encrypt(max_value, fhe_type))
 
     # -- serialisation (fhevm.h:433-471) ------------------------------------------
-    def _no_serial(self):
-        raise NotImplementedError("ciphertext and key serialisation (utils/serial) is not "
-                                  "ported to fhe_tpu_torch yet (ROADMAP.md queue 1, item 14)")
-
     def serialize_ciphertext(self, x: EncryptedInt) -> bytes:
-        self._no_serial()
+        from ..utils import serial
+        return serial.dumps(x)
 
     def deserialize_ciphertext(self, data: bytes) -> EncryptedInt:
-        self._no_serial()
+        """The ciphertext on the context's device (fhe_tpu's archives too)."""
+        from ..utils import serial
+        return serial.loads(data, device=self.ctx.device)
 
     def serialize_secret_key(self) -> bytes:
-        self._no_serial()
+        from ..utils import serial
+        return serial.dumps(self.sk)
 
     def serialize_bootstrap_key(self) -> bytes:
-        self._no_serial()
+        from ..utils import serial
+        return serial.dumps(self.key)
 
     # -- verification (fhevm.h Verify:480 / GetProof:485) -------------------------
     def verify(self, x: EncryptedInt) -> bool:

@@ -760,3 +760,102 @@ def test_threshold_on_card_matches_cpu(cuda, monkeypatch):
     _same(outs[1][1], outs[0][1])
     assert outs[1][2] == outs[0][2]
     _same(outs[1][3], outs[0][3])
+
+
+def test_server_on_card_matches_direct_calls(cuda):
+    """The port's server on the card, over HTTP on an ephemeral port: STD128
+    keygen, encrypt of 64 bit pairs, AND and NOT; every archive equals the
+    port's BinFheContext called directly from the same seeds (the
+    encryptions also the CPU port's), and the outputs decrypt right."""
+    import base64
+    import json
+    import threading
+    import urllib.request
+    from fhe_tpu_torch import server
+    from fhe_tpu_torch.utils import serial
+
+    def post(path, payload):
+        req = urllib.request.Request(base + path, data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req) as r:
+            return json.loads(r.read())
+
+    httpd = server.make_server(0, device=cuda)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/health") as r:
+            assert json.loads(r.read())["backend"] == "cuda"
+        cid = post("/context", {"param_set": "STD128"})["context_id"]
+        kid = post("/keygen", {"context_id": cid, "seed": 5})["key_id"]
+        rng = np.random.default_rng(6)
+        m1, m2 = rng.integers(0, 2, size=(2, 64))
+        cts = [post("/encrypt", {"context_id": cid, "key_id": kid, "bits": m.tolist(),
+                                 "seed": s})["ciphertext"] for m, s in ((m1, 7), (m2, 8))]
+        and_ct = post("/v1/eval/and", {"context_id": cid, "key_id": kid, "ct1": cts[0],
+                                       "ct2": cts[1]})["ciphertext"]
+        not_ct = post("/not", {"context_id": cid, "ciphertext": and_ct})["ciphertext"]
+        bits = [post("/decrypt", {"context_id": cid, "key_id": kid, "ciphertext": c})["bits"]
+                for c in (and_ct, not_ct)]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    b64 = lambda ct: base64.b64encode(serial.dumps(ct)).decode()
+    ctx = BinFheContext.generate("STD128", device=cuda)
+    krng = np.random.default_rng(5)
+    sk = ctx.key_gen(krng)
+    key = ctx.bt_key_gen(sk, krng)
+    direct = [ctx.encrypt(sk, m, np.random.default_rng(s)) for m, s in ((m1, 7), (m2, 8))]
+    assert cts == [b64(c) for c in direct]
+    cpu = BinFheContext.generate("STD128", device="cpu")
+    cpu_sk = cpu.key_gen(np.random.default_rng(5))
+    assert cts[0] == b64(cpu.encrypt(cpu_sk, m1, np.random.default_rng(7)))
+    out = ctx.eval_bin_gate(key, "AND", *direct)
+    assert and_ct == b64(out) and not_ct == b64(ctx.eval_not(out))
+    assert bits == [(m1 & m2).tolist(), (1 - (m1 & m2)).tolist()]
+
+
+def test_capi_on_card_matches_direct_calls(cuda):
+    """libfhecapi with its registries on the card: lux_fhe_has_gpu is 1;
+    STD128 gates through the ABI on every input pair decrypt right and
+    marshal to the bytes of capi_impl's functions called directly on the
+    card from the same seed."""
+    import ctypes
+    import os
+    import shutil
+    import sysconfig
+    from fhe_tpu_torch.native import capi, capi_impl
+    if shutil.which("g++") is None or not os.path.exists(
+            os.path.join(sysconfig.get_paths()["include"], "Python.h")):
+        pytest.skip("needs g++ and this interpreter's Python.h")
+    capi_impl.set_device(cuda)
+    lib = capi.get_lib()
+    assert lib.lux_fhe_has_gpu() == 1
+
+    def handle(call, *args):
+        out = ctypes.c_void_p()
+        assert call(*args, ctypes.byref(out)) == 0
+        return out
+
+    def marshal(ct):
+        data, n = capi._u8p(), ctypes.c_int64()
+        assert lib.lux_fhe_ciphertext_marshal(ct, ctypes.byref(data), ctypes.byref(n)) == 0
+        raw = ctypes.string_at(data, n.value)
+        lib.lux_fhe_bytes_free(data)
+        return raw
+
+    ctx = handle(lib.lux_fhe_context_new, b"STD128", b"GINX")
+    sk = handle(lib.lux_fhe_keygen_secret, ctx, 9)
+    bsk = handle(lib.lux_fhe_keygen_bootstrap, ctx, sk)
+    cts = {b: handle(lib.lux_fhe_encrypt, ctx, sk, b) for b in (0, 1)}
+    h = capi_impl.context_new("STD128")
+    psk = capi_impl.keygen_secret(h, 9)
+    pbk = capi_impl.keygen_bootstrap(h, psk)
+    pcts = {b: capi_impl.encrypt(h, psk, b) for b in (0, 1)}
+    for a in (0, 1):
+        for b in (0, 1):
+            out = handle(lib.lux_fhe_xor, ctx, bsk, cts[a], cts[b])
+            res = ctypes.c_int()
+            assert lib.lux_fhe_decrypt(ctx, sk, out, ctypes.byref(res)) == 0
+            assert res.value == a ^ b
+            assert marshal(out) == capi_impl.ciphertext_marshal(
+                capi_impl.eval_gate(h, pbk, "XOR", pcts[a], pcts[b]))

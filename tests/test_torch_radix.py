@@ -300,19 +300,32 @@ def test_public_key_decrypts_right(cut):
 
 
 def test_not_ported_yet_raise(cut):
+    """The serialisation methods (utils/serial) and the proofs against
+    fhe_tpu's, byte for byte."""
     tfc = cut[1]
-    x = tfc.trivial_encrypt([1], FheType.EUINT8)
-    for call in (lambda: tfc.serialize_ciphertext(x), lambda: tfc.deserialize_ciphertext(b""),
-                 tfc.serialize_secret_key, tfc.serialize_bootstrap_key):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            call()
+    x = tfc.encrypt([1, 200, 37], FheType.EUINT8, 91)
+    jx = jradix.RadixInt(ct=jlwe.LweCiphertext(
+        a=jnp.asarray(x.value.ct.a.numpy().astype(np.uint32)),
+        b=jnp.asarray(x.value.ct.b.numpy().astype(np.uint32)),
+        modulus=x.value.ct.modulus, pt_mod=x.value.ct.pt_mod),
+        rp=jradix.RadixParams(jshort.ShortIntParams(SP.message_bits, SP.carry_bits),
+                              x.value.rp.num_limbs), max_limb=x.value.max_limb)
+    jenc = jfhevm.EncryptedInt(jx, jfhevm.FheType.EUINT8)
+    blob = tfc.serialize_ciphertext(x)
+    assert blob == jfhevm.FheContext.serialize_ciphertext(None, jenc)
+    back = tfc.deserialize_ciphertext(blob)
+    assert back.fhe_type is FheType.EUINT8 and back.value.rp == x.value.rp
+    _eq_int(jx, back)
+    np.testing.assert_array_equal(tfc.decrypt(back), [1, 200, 37])
+    from fhe_tpu_torch.utils import serial
+    for blob, obj in ((tfc.serialize_secret_key(), tfc.sk),
+                      (tfc.serialize_bootstrap_key(), tfc.key)):
+        got = serial.loads(blob, device=CPU)
+        assert type(got) is type(obj) and serial.dumps(got) == blob
     # the proofs are ported (tfhe/zkp.py): fhe_tpu's commitment to the
     # ciphertext's uint32 words, byte for byte
     proof = tfc.get_proof(x)
-    jx = jradix.RadixInt(ct=jlwe.LweCiphertext(
-        a=x.value.ct.a.numpy().astype(np.uint32), b=x.value.ct.b.numpy().astype(np.uint32),
-        modulus=x.value.ct.modulus, pt_mod=x.value.ct.pt_mod), rp=None, max_limb=0)
-    assert proof == jfhevm.FheContext.get_proof(None, jfhevm.EncryptedInt(jx, None))
+    assert proof == jfhevm.FheContext.get_proof(None, jenc)
     assert tfc.verify_proof(x, proof)
     assert not tfc.verify_proof(x, proof[:-1] + bytes([proof[-1] ^ 1]))
     with pytest.raises(ValueError, match="public_key_gen first"):
